@@ -1,0 +1,275 @@
+"""Dense decoder LM (PyTorch port of ``repro.models.model``, dense
+subset: every layer an ``attn_global`` block with a gated MLP).
+
+Layers are grouped into periods as in the reference; parameters for
+each period position are stacked over ``n_periods`` (``layers/scan/
+pos0/...``), so a reference parameter tree converts with no reshaping.
+Where the reference drives the stack with ``lax.scan``/``fori_loop``,
+the port runs a Python loop over the stacked index; decode writes each
+layer's slice of the stacked caches in place.
+
+Public surface:
+  block_pattern_of(cfg)   -> per-period block kinds
+  model_template(cfg)     -> nested dict of ParamSpec
+  init_params(cfg, generator, device) -> parameter tree
+  init_cache(cfg, B, len, device)     -> stacked KV caches
+  forward(cfg, params, tokens, ...)   -> (hidden, caches, aux)
+  prefill(cfg, params, tokens, ...)   -> (logits, caches, aux)
+  decode_step(cfg, params, token, pos, caches) -> (logits, caches)
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import ParamSpec
+
+f32 = torch.float32
+
+# config flags the dense subset does not implement (value -> unsupported)
+_UNSUPPORTED = ("window_pattern", "block_pattern", "moe", "kv_quant",
+                "encoder_layers", "vision_tokens", "sandwich_norm",
+                "qk_norm", "learned_pos_embed")
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise NotImplementedError for a config outside the dense subset."""
+    bad = [f for f in _UNSUPPORTED if getattr(cfg, f)]
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(bad)} not ported yet (the PyTorch "
+            f"port covers plain dense attn_global decoders)")
+
+
+# --------------------------------------------------------------------------
+# block pattern / layer layout
+# --------------------------------------------------------------------------
+
+def block_pattern_of(cfg: ArchConfig) -> tuple[str, ...]:
+    check_supported(cfg)
+    return ("attn_global",)
+
+
+def layer_layout(cfg: ArchConfig) -> tuple[tuple[str, ...], int, int]:
+    """(pattern, n_periods, n_remainder)."""
+    pat = block_pattern_of(cfg)
+    return pat, cfg.n_layers // len(pat), cfg.n_layers % len(pat)
+
+
+# --------------------------------------------------------------------------
+# templates
+# --------------------------------------------------------------------------
+
+def block_template(cfg: ArchConfig, kind: str):
+    if kind != "attn_global":
+        raise NotImplementedError(kind)
+    D = cfg.d_model
+    norm = lambda: ParamSpec((D,), ("embed",), init="zeros")  # noqa: E731
+    t: dict[str, Any] = {"ln1": norm(), "attn": L.attn_template(cfg)}
+    if cfg.d_ff > 0:
+        t["ln2"] = norm()
+        t["mlp"] = L.mlp_template(cfg)
+    return t
+
+
+def _stack_specs(tmpl, n):
+    return {k: (_stack_specs(s, n) if isinstance(s, dict) else
+                ParamSpec((n,) + s.shape, ("layers",) + s.axes, s.init,
+                          s.scale))
+            for k, s in tmpl.items()}
+
+
+def model_template(cfg: ArchConfig):
+    D, V = cfg.d_model, cfg.vocab
+    pat, n_per, _ = layer_layout(cfg)
+    t: dict[str, Any] = {
+        "embed": ParamSpec((V, D), ("vocab", "embed"), scale=1.0),
+        "final_norm": ParamSpec((D,), ("embed",), init="zeros"),
+    }
+    if not cfg.tie_embeddings:
+        t["lm_head"] = ParamSpec((D, V), ("embed", "vocab"))
+    t["layers"] = {"scan": {
+        f"pos{i}": _stack_specs(block_template(cfg, k), n_per)
+        for i, k in enumerate(pat)}}
+    return t
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def param_count(cfg: ArchConfig) -> int:
+    return sum(math.prod(s.shape) for _, s in _leaves(model_template(cfg)))
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                device="cuda"):
+    """Random parameters drawn from ``generator`` on ``device``, directly
+    in ``cfg.tdtype`` and one stacked layer slice at a time (no fp32
+    transient of a full stacked weight).
+
+    A stacked weight's std comes from its per-layer fan-in; the
+    reference's stacked specs take the stack depth as fan-in.  Seeded
+    inits are never compared across frameworks: weights cross through
+    ``repro_torch.models.convert``.
+    """
+    def build(tmpl, stacked):
+        out = {}
+        for k, s in tmpl.items():
+            if isinstance(s, dict):
+                out[k] = build(s, stacked)
+                continue
+            t = torch.empty(s.shape, dtype=cfg.tdtype, device=device)
+            if stacked:
+                inner = ParamSpec(s.shape[1:], s.axes[1:], s.init, s.scale)
+                for i in range(s.shape[0]):
+                    inner.fill_(t[i], generator)
+            else:
+                s.fill_(t, generator)
+            out[k] = t
+        return out
+
+    tmpl = model_template(cfg)
+    params = build({k: v for k, v in tmpl.items() if k != "layers"}, False)
+    params["layers"] = build(tmpl["layers"], True)
+    return params
+
+
+# --------------------------------------------------------------------------
+# caches
+# --------------------------------------------------------------------------
+
+def _block_cache(cfg: ArchConfig, n: int, B: int, S: int, device):
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    return {"k": torch.zeros((n, B, S, K, hd), dtype=cfg.tdtype,
+                             device=device),
+            "v": torch.zeros((n, B, S, K, hd), dtype=cfg.tdtype,
+                             device=device),
+            "pos": torch.full((n, B, S), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device="cuda"):
+    pat, n_per, _ = layer_layout(cfg)
+    return {"scan": {f"pos{i}": _block_cache(cfg, n_per, batch, cache_len,
+                                             device)
+                     for i in range(len(pat))}}
+
+
+# --------------------------------------------------------------------------
+# block application
+# --------------------------------------------------------------------------
+
+def _apply_block(p, cfg, x, positions, *, cache=None, decode=False,
+                 make_cache=0):
+    """One residual block.  Returns (x, cache): the decode cache updated
+    in place, or the new prefill cache when ``make_cache`` > 0."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if decode:
+        y, cache = L.attn_decode(p["attn"], cfg, h, positions, cache)
+    else:
+        y, cache = L.attn_apply(p["attn"], cfg, h, positions,
+                                make_cache=make_cache)
+    x = x + y
+    if "mlp" in p:
+        h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + L.mlp_apply(p["mlp"], h)
+    return x, cache
+
+
+def _run_layers(cfg, params_l, x, positions, *, caches=None, decode=False,
+                make_cache=0):
+    """Drive the stacked layer group: a loop over the period index.
+
+    Decode updates ``caches`` in place; prefill with ``make_cache`` > 0
+    writes each layer's cache into a fresh stacked cache.  Returns
+    (x, caches or None).
+    """
+    pat, n_per, _ = layer_layout(cfg)
+    scan = params_l["scan"]
+    if make_cache:
+        caches = init_cache(cfg, x.shape[0], make_cache, x.device)
+    for t in range(n_per):
+        for i, _kind in enumerate(pat):
+            p_t = _index(scan[f"pos{i}"], t)
+            c_t = _index(caches["scan"][f"pos{i}"], t) if caches else None
+            x, nc = _apply_block(p_t, cfg, x, positions, cache=c_t,
+                                 decode=decode, make_cache=make_cache)
+            if make_cache:
+                for key, val in nc.items():
+                    c_t[key].copy_(val)
+    return x, (caches if (decode or make_cache) else None)
+
+
+def _index(tree, t):
+    return {k: (_index(v, t) if isinstance(v, dict) else v[t])
+            for k, v in tree.items()}
+
+
+# --------------------------------------------------------------------------
+# model entry points
+# --------------------------------------------------------------------------
+
+def _check_range(idx, n, what):
+    """Raise IndexError for an index outside [0, n) (the reference clamps;
+    on a CUDA tensor an out-of-range index would be a device fault)."""
+    if bool(((idx < 0) | (idx >= n)).any()):
+        raise IndexError(f"{what} out of range [0, {n})")
+
+
+def embed_tokens(cfg, params, tokens):
+    _check_range(tokens, cfg.vocab, "token id")
+    x = params["embed"][tokens]
+    if cfg.scale_embed:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
+
+
+def _head(cfg, params, h):
+    """fp32 logits, as the reference's preferred_element_type=f32."""
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = torch.matmul(h.to(f32), w.to(f32))
+    return L.softcap(logits, cfg.final_softcap)
+
+
+def forward(cfg: ArchConfig, params, tokens, *, make_cache=0):
+    """Full-sequence forward from position 0.  Returns (hidden (B,S,D),
+    caches, aux)."""
+    x = embed_tokens(cfg, params, tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    x, caches = _run_layers(cfg, params["layers"], x, positions,
+                            make_cache=make_cache)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, caches, {}
+
+
+def prefill(cfg: ArchConfig, params, tokens, *, cache_len=None):
+    """Prefill: forward + decode-cache construction.  Returns
+    (last-token logits (B, V), caches, aux)."""
+    cache_len = cache_len or tokens.shape[1]
+    h, caches, aux = forward(cfg, params, tokens, make_cache=cache_len)
+    return _head(cfg, params, h[:, -1]), caches, aux
+
+
+def decode_step(cfg: ArchConfig, params, token, pos, caches):
+    """One decode step.  token: (B, 1) ids; pos: (B,) positions.
+
+    Returns (logits (B, V), caches) with ``caches`` updated in place.
+    """
+    slots = caches["scan"]["pos0"]["k"].shape[2]
+    _check_range(pos, slots, "decode position")
+    x = embed_tokens(cfg, params, token)
+    x, caches = _run_layers(cfg, params["layers"], x, pos, caches=caches,
+                            decode=True)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _head(cfg, params, x[:, 0]), caches

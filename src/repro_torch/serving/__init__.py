@@ -1,0 +1,7 @@
+"""Level-B model serving (PyTorch port of ``repro.serving``:
+``ServingEngine`` for dense configs and its components)."""
+
+from repro_torch.serving.components import (  # noqa: F401
+    Component, ComponentRegistry, LoadPolicy,
+)
+from repro_torch.serving.engine import ServingEngine  # noqa: F401

@@ -1,0 +1,235 @@
+"""PyTorch port: the kernels' plain versions against the reference's
+Pallas kernels (interpret mode) and jnp oracles, on the cases of
+tests/test_kernels.py, in fp32 and bf16 at the reference's tolerances.
+
+On the CPU the port's wrappers run the plain versions (a CUDA kernel
+has no interpret mode); the kernels themselves are held against these
+plain versions on the card by chip_smoke.py and tests/test_torch_cuda.py.
+Inputs are made with numpy from a seed and handed to both packages.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.decode_attention import (  # noqa: E402
+    decode_attention as j_decode,
+)
+from repro.kernels.flash_attention import (  # noqa: E402
+    flash_attention as j_flash,
+)
+from repro.models import layers as JL  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, split_plan,
+)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention,
+)
+from repro_torch.models import layers as TL  # noqa: E402
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+
+
+def _pair(rng, shape, dtype):
+    """The same values as a jax array and a torch tensor of ``dtype``."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(x).astype(jd), torch.from_numpy(x).to(td)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+# ----------------------------------------------------------------- flash
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,H,K,Sq,Skv,hd,causal,window,cap",
+    [
+        (2, 4, 2, 64, 64, 32, True, None, None),      # GQA
+        (1, 2, 2, 48, 48, 16, True, None, None),      # off-block seq
+        (1, 4, 1, 40, 40, 32, True, 16, None),        # MQA + window
+        (1, 2, 2, 33, 33, 16, True, None, 30.0),      # softcap + ragged
+        (1, 2, 2, 16, 80, 16, False, None, None),     # bidir, Sq != Skv
+    ])
+def test_flash_plain_vs_pallas(B, H, K, Sq, Skv, hd, causal, window, cap,
+                               dtype):
+    rng = np.random.default_rng(B * 1000 + Sq + Skv)
+    jq, tq = _pair(rng, (B, H, Sq, hd), dtype)
+    jk, tk = _pair(rng, (B, K, Skv, hd), dtype)
+    jv, tv = _pair(rng, (B, K, Skv, hd), dtype)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    got = flash_attention(tq, tk, tv, **kw)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == tq.shape
+    pallas = j_flash(jq, jk, jv, block_q=16, block_kv=16, interpret=True,
+                     **kw)
+    oracle = jref.ref_flash_attention(jq, jk, jv, **kw)
+    np.testing.assert_allclose(_np(got), _np(pallas), **TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(oracle), **TOL[dtype])
+    np.testing.assert_allclose(
+        _np(tref.ref_flash_attention(tq, tk, tv, **kw)), _np(got), rtol=0,
+        atol=0)
+
+
+# ---------------------------------------------------------------- decode
+def _decode_positions(B, S, ring):
+    if ring:
+        cur = S + 7  # wrapped ring: slot i holds the position with i == p % S
+        base = np.arange(S)
+        kv_pos = np.where(base <= cur % S, base + (cur // S) * S,
+                          base + (cur // S - 1) * S)
+        q_pos = np.full((B,), cur)
+    else:
+        n_valid = S - 5
+        kv_pos = np.where(np.arange(S) < n_valid, np.arange(S), -1)
+        q_pos = np.full((B,), n_valid - 1)
+    kv_pos = np.broadcast_to(kv_pos, (B, S)).astype(np.int32)
+    return q_pos.astype(np.int32), np.ascontiguousarray(kv_pos)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,K,G,S,hd,window,cap,ring",
+    [
+        (2, 2, 2, 64, 32, None, None, False),
+        (1, 1, 4, 48, 16, None, None, False),   # MQA, ragged S
+        (2, 2, 1, 40, 16, 16, None, True),      # ring buffer + window
+        (1, 2, 2, 33, 16, None, 30.0, False),   # softcap
+    ])
+def test_decode_plain_vs_pallas(B, K, G, S, hd, window, cap, ring, dtype):
+    rng = np.random.default_rng(B * 100 + S)
+    jq, tq = _pair(rng, (B, K, G, hd), dtype)
+    jk, tk = _pair(rng, (B, K, S, hd), dtype)
+    jv, tv = _pair(rng, (B, K, S, hd), dtype)
+    q_pos, kv_pos = _decode_positions(B, S, ring)
+    kw = dict(window=window, softcap=cap)
+    got = decode_attention(tq, tk, tv, torch.from_numpy(q_pos),
+                           torch.from_numpy(kv_pos), **kw)
+    pallas = j_decode(jq, jk, jv, jnp.asarray(q_pos), jnp.asarray(kv_pos),
+                      block_kv=16, interpret=True, **kw)
+    oracle = jref.ref_decode_attention(jq, jk, jv, jnp.asarray(q_pos),
+                                       jnp.asarray(kv_pos), **kw)
+    np.testing.assert_allclose(_np(got), _np(pallas), **TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(oracle), **TOL[dtype])
+
+
+def test_decode_row_without_valid_slot_matches_oracle():
+    """A row with no valid slot averages v over the S real slots, as the
+    oracle does (the Pallas kernel averages over its padded length:
+    S=40 with block 16 gives sum(v)/48).  The model never makes one."""
+    rng = np.random.default_rng(5)
+    B, K, G, S, hd = 1, 1, 2, 40, 16
+    jq, tq = _pair(rng, (B, K, G, hd), "float32")
+    jk, tk = _pair(rng, (B, K, S, hd), "float32")
+    jv, tv = _pair(rng, (B, K, S, hd), "float32")
+    q_pos = np.zeros((B,), np.int32)
+    kv_pos = np.full((B, S), -1, np.int32)
+    got = _np(decode_attention(tq, tk, tv, torch.from_numpy(q_pos),
+                               torch.from_numpy(kv_pos)))
+    oracle = _np(jref.ref_decode_attention(jq, jk, jv, jnp.asarray(q_pos),
+                                           jnp.asarray(kv_pos)))
+    np.testing.assert_allclose(got, oracle, rtol=2e-5, atol=2e-5)
+    mean_v = _np(tv).mean(axis=2, keepdims=True)  # (B, K, 1, hd)
+    np.testing.assert_allclose(got, np.broadcast_to(mean_v, got.shape),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("batch_kv,S,want", [
+    (32, 640, (96, 7)),     # granite-8b decode: B=4 x K=8 kv heads
+    (1, 40, (32, 2)),
+    (4, 33, (32, 2)),
+    (512, 640, (640, 1)),   # enough (b, kv-head) pairs: no split
+])
+def test_decode_split_plan(batch_kv, S, want):
+    chunk, n_split = split_plan(batch_kv, S)
+    assert (chunk, n_split) == want
+    assert chunk % 32 == 0 and (n_split - 1) * chunk < S <= n_split * chunk
+
+
+# ------------------------------------------------------------ model layout
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,cap", [(None, None), (8, None),
+                                        (None, 30.0)])
+def test_attention_op_matches_reference_ops(window, cap, dtype):
+    rng = np.random.default_rng(3)
+    B, S, K, G, hd = 2, 32, 2, 2, 16
+    jq, tq = _pair(rng, (B, S, K, G, hd), dtype)
+    jk, tk = _pair(rng, (B, S, K, hd), dtype)
+    jv, tv = _pair(rng, (B, S, K, hd), dtype)
+    kw = dict(causal=True, window=window, softcap=cap)
+    pos = torch.arange(S).expand(B, S)
+    got = tops.attention_op(tq, tk, tv, positions=pos, **kw)
+    assert got.shape == (B, S, K, G, hd)
+    want = jops.attention_op(jq, jk, jv, **kw)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+    if dtype == "float32":  # and against the model's einsum path
+        xla = TL.attention(tq, tk, tv, q_positions=pos, kv_positions=pos,
+                           causal=True, window=window, softcap_val=cap)
+        np.testing.assert_allclose(_np(got), _np(xla), rtol=2e-3,
+                                   atol=2e-3)
+
+
+def test_attention_op_rejects_positions_not_from_zero():
+    rng = np.random.default_rng(4)
+    _, q = _pair(rng, (1, 8, 1, 2, 16), "float32")
+    _, k = _pair(rng, (1, 8, 1, 16), "float32")
+    with pytest.raises(ValueError, match="positions 0..S-1"):
+        tops.attention_op(q, k, k, positions=torch.arange(8)[None] + 3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_op_matches_reference(dtype):
+    """Model layout over a live cache: the reference's ops wrapper and the
+    model's einsum decode path."""
+    rng = np.random.default_rng(6)
+    B, T, K, G, hd = 2, 24, 2, 2, 16
+    jq, tq = _pair(rng, (B, 1, K, G, hd), dtype)
+    jk, tk = _pair(rng, (B, T, K, hd), dtype)
+    jv, tv = _pair(rng, (B, T, K, hd), dtype)
+    q_pos, kv_pos = _decode_positions(B, T, ring=False)
+    got = tops.decode_attention_op(tq, tk, tv, torch.from_numpy(q_pos),
+                                   torch.from_numpy(kv_pos))
+    want = jops.decode_attention_op(jq, jk, jv, jnp.asarray(q_pos),
+                                    jnp.asarray(kv_pos))
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+    xla = JL.attention(jq, jk, jv, q_positions=jnp.asarray(q_pos)[:, None],
+                       kv_positions=jnp.asarray(kv_pos), causal=True)
+    np.testing.assert_allclose(_np(got), _np(xla), **TOL[dtype])
+
+
+# --------------------------------------------------------------- dispatch
+def test_cpu_tensors_never_launch_kernels():
+    flash_attention.launches = 0
+    decode_attention.launches = 0
+    rng = np.random.default_rng(7)
+    _, q = _pair(rng, (1, 2, 8, 16), "float32")
+    _, k = _pair(rng, (1, 1, 8, 16), "float32")
+    flash_attention(q, k, k)
+    decode_attention(q[:, :1, :2], k, k, torch.tensor([7], dtype=torch.int32),
+                     torch.arange(8, dtype=torch.int32)[None])
+    assert flash_attention.launches == 0
+    assert decode_attention.launches == 0
+
+
+def test_no_kernel_for_other_devices():
+    q = torch.empty((1, 2, 8, 16), device="meta")
+    k = torch.empty((1, 1, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="no kernel"):
+        decode_attention(q[:, :1, :2], k, k,
+                         torch.empty((1,), dtype=torch.int32, device="meta"),
+                         torch.empty((1, 8), dtype=torch.int32,
+                                     device="meta"))

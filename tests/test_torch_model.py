@@ -1,0 +1,240 @@
+"""PyTorch port: the dense decoder against ``repro.models`` on reduced
+configs, with the reference's weights carried over (JAX init_params ->
+numpy -> repro_torch.models.convert), plus the numerics the port pins.
+
+Tolerance 2e-3, the reference's own (tests/test_archs.py).  On the CPU
+the port's attention runs the kernels' plain versions.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_reduced as j_reduced  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro_torch.configs import get_reduced as t_reduced  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.models.convert import (  # noqa: E402
+    from_numpy_tree, to_numpy_tree,
+)
+
+TOL = dict(rtol=2e-3, atol=2e-3)
+ARCHS = ["granite-8b", "qwen2.5-32b"]  # qwen: qkv bias, untied head
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    arch = request.param
+    jcfg, tcfg = j_reduced(arch), t_reduced(arch)
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(1))
+    tparams = from_numpy_tree(jax.tree.map(np.asarray, jparams), "cpu")
+    return arch, jcfg, tcfg, jparams, tparams
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _leaves(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaves(tree[k], f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", tree[k]
+
+
+def test_converted_tree_matches_template(pair):
+    arch, jcfg, tcfg, jparams, tparams = pair
+    jl = dict(_leaves(jax.tree.map(np.asarray, jparams)))
+    tl = dict(_leaves(tparams))
+    assert jl.keys() == tl.keys()
+    for name, spec in _leaves(TM.model_template(tcfg)):
+        assert tuple(tl[name].shape) == spec.shape, name
+        np.testing.assert_array_equal(_np(tl[name]), jl[name])
+    # the port's own init builds the same tree, dtypes and shapes
+    own = TM.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    assert {k: (tuple(v.shape), v.dtype) for k, v in _leaves(own)} == \
+        {k: (tuple(v.shape), v.dtype) for k, v in tl.items()}
+
+
+def test_forward_prefill_decode_match_reference(pair):
+    arch, jcfg, tcfg, jparams, tparams = pair
+    B, T0, n_dec = 2, 8, 5
+    total = T0 + n_dec
+    toks = np.random.default_rng(2).integers(
+        0, jcfg.vocab, (B, total)).astype(np.int32)
+
+    jh, _, _ = JM.forward(jcfg, jparams, jnp.asarray(toks))
+    th, _, _ = TM.forward(tcfg, tparams, torch.from_numpy(toks))
+    np.testing.assert_allclose(_np(th), _np(jh), **TOL,
+                               err_msg=f"{arch}: forward hidden")
+
+    jl, jc, _ = JM.prefill(jcfg, jparams, jnp.asarray(toks[:, :T0]),
+                           cache_len=total)
+    tl, tc, _ = TM.prefill(tcfg, tparams, torch.from_numpy(toks[:, :T0]),
+                           cache_len=total)
+    assert tl.dtype == torch.float32
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL,
+                               err_msg=f"{arch}: prefill logits")
+    jcn = dict(_leaves(jax.tree.map(np.asarray, jc)))
+    tcn = dict(_leaves(to_numpy_tree(tc)))
+    assert jcn.keys() == tcn.keys()
+    for name in jcn:
+        np.testing.assert_allclose(tcn[name], jcn[name], **TOL,
+                                   err_msg=f"{arch}: cache {name}")
+
+    for i in range(n_dec):
+        pos = np.full((B,), T0 + i, np.int32)
+        tok = toks[:, T0 + i:T0 + i + 1]
+        jl, jc = JM.decode_step(jcfg, jparams, jnp.asarray(tok),
+                                jnp.asarray(pos), jc)
+        tl, tc = TM.decode_step(tcfg, tparams, torch.from_numpy(tok),
+                                torch.from_numpy(pos), tc)
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL,
+                                   err_msg=f"{arch}: decode step {i}")
+    jcn = dict(_leaves(jax.tree.map(np.asarray, jc)))
+    for name, arr in _leaves(to_numpy_tree(tc)):
+        np.testing.assert_allclose(arr, jcn[name], **TOL,
+                                   err_msg=f"{arch}: cache {name} after "
+                                           f"decode")
+
+
+def test_prefill_decode_matches_forward(pair):
+    """The port's own cache correctness: prefill + decode steps against
+    the teacher-forced forward (tests/test_archs.py, in the port)."""
+    arch, _, tcfg, _, tparams = pair
+    B, T0, n_dec = 2, 8, 5
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, tcfg.vocab, (B, T0 + n_dec)).astype(np.int32))
+    h, _, _ = TM.forward(tcfg, tparams, toks)
+    full = _np(TM._head(tcfg, tparams, h))
+    logits, caches, _ = TM.prefill(tcfg, tparams, toks[:, :T0],
+                                   cache_len=T0 + n_dec)
+    np.testing.assert_allclose(_np(logits), full[:, T0 - 1], **TOL)
+    for i in range(n_dec):
+        pos = torch.full((B,), T0 + i, dtype=torch.int32)
+        logits, caches = TM.decode_step(tcfg, tparams,
+                                        toks[:, T0 + i:T0 + i + 1], pos,
+                                        caches)
+        np.testing.assert_allclose(_np(logits), full[:, T0 + i], **TOL,
+                                   err_msg=f"{arch}: decode step {i}")
+
+
+# ------------------------------------------------------------ pinned numerics
+def test_out_of_range_indices_raise_where_reference_clamps():
+    # cache_write: the reference's dynamic_update_slice clamps row 9 of a
+    # 4-row cache to row 3; the port raises
+    cache = np.zeros((1, 4, 2), np.float32)
+    new = np.ones((1, 2), np.float32)
+    got = np.asarray(JL.cache_write(jnp.asarray(cache), jnp.asarray(new),
+                                    jnp.asarray([9])))
+    assert got[0, 3].tolist() == [1.0, 1.0]
+    with pytest.raises(IndexError):
+        TL.cache_write(torch.from_numpy(cache), torch.from_numpy(new),
+                       torch.tensor([9]))
+    # token ids: the reference's embedding gather clamps, the port raises
+    jcfg, tcfg = j_reduced("granite-8b"), t_reduced("granite-8b")
+    params = {"embed": np.arange(jcfg.vocab * jcfg.d_model, dtype=np.float32)
+              .reshape(jcfg.vocab, jcfg.d_model)}
+    bad = np.array([[jcfg.vocab + 5]], np.int32)
+    clamped = np.asarray(JM.embed_tokens(jcfg, {"embed": jnp.asarray(
+        params["embed"])}, jnp.asarray(bad)))
+    np.testing.assert_array_equal(clamped[0, 0], params["embed"][-1])
+    with pytest.raises(IndexError):
+        TM.embed_tokens(tcfg, from_numpy_tree(params, "cpu"),
+                        torch.from_numpy(bad))
+    # decode positions past the cache raise before any write
+    caches = TM.init_cache(tcfg, 1, 4, "cpu")
+    with pytest.raises(IndexError):
+        TM.decode_step(tcfg, None, torch.zeros((1, 1), dtype=torch.int32),
+                       torch.tensor([4], dtype=torch.int32), caches)
+
+
+def test_mlp_uses_tanh_gelu():
+    """jax.nn.gelu defaults to the tanh form; the exact (erf) gelu would
+    miss the reference by more than the tolerance."""
+    rng = np.random.default_rng(8)
+    D, Fd = 16, 32
+    x = rng.standard_normal((2, 3, D)).astype(np.float32) * 3
+    p = {"wi": rng.standard_normal((D, 2 * Fd)).astype(np.float32),
+         "wo": rng.standard_normal((Fd, D)).astype(np.float32)}
+    want = np.asarray(JL.mlp_apply(jax.tree.map(jnp.asarray, p),
+                                   jnp.asarray(x)))
+    tp = from_numpy_tree(p, "cpu")
+    got = TL.mlp_apply(tp, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-4)
+    g, u = torch.from_numpy(x @ p["wi"]).chunk(2, dim=-1)
+    erf = (torch.nn.functional.gelu(g) * u).numpy() @ p["wo"]
+    assert np.abs(erf - want).max() > 1e-2
+
+
+def test_fully_masked_row_is_uniform_not_nan():
+    """Additive -1e30 masks: a row with no valid key averages v, as the
+    reference does; a boolean -inf mask would give NaN."""
+    rng = np.random.default_rng(9)
+    B, S, K, G, hd = 1, 4, 1, 2, 8
+    q = rng.standard_normal((B, 1, K, G, hd)).astype(np.float32)
+    k = rng.standard_normal((B, S, K, hd)).astype(np.float32)
+    v = rng.standard_normal((B, S, K, hd)).astype(np.float32)
+    qp = np.zeros((B, 1), np.int32)
+    kp = np.full((B, S), -1, np.int32)
+    want = np.asarray(JL.attention(*map(jnp.asarray, (q, k, v)),
+                                   q_positions=jnp.asarray(qp),
+                                   kv_positions=jnp.asarray(kp)))
+    got = TL.attention(*map(torch.from_numpy, (q, k, v)),
+                       q_positions=torch.from_numpy(qp),
+                       kv_positions=torch.from_numpy(kp)).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got[0, 0, 0, 0], v[0, :, 0].mean(0),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_primitives_match_reference():
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((2, 5, 2, 3, 16)).astype(np.float32)
+    pos = rng.integers(0, 600, (2, 5)).astype(np.int32)
+    np.testing.assert_allclose(
+        TL.rope(torch.from_numpy(x), torch.from_numpy(pos), 1e7).numpy(),
+        np.asarray(JL.rope(jnp.asarray(x), jnp.asarray(pos), 1e7)),
+        rtol=1e-4, atol=1e-4)
+    scale = rng.standard_normal((16,)).astype(np.float32)
+    np.testing.assert_allclose(
+        TL.rms_norm(torch.from_numpy(x), torch.from_numpy(scale),
+                    1e-6).numpy(),
+        np.asarray(JL.rms_norm(jnp.asarray(x), jnp.asarray(scale), 1e-6)),
+        rtol=1e-5, atol=1e-5)
+    # bf16 dot: fp32 accumulation, output cast back to bf16
+    a = rng.standard_normal((3, 64)).astype(np.float32)
+    w = rng.standard_normal((64, 8)).astype(np.float32)
+    ja, jw = jnp.asarray(a).astype(jnp.bfloat16), \
+        jnp.asarray(w).astype(jnp.bfloat16)
+    got = TL.dot(torch.from_numpy(a).bfloat16(), torch.from_numpy(w)
+                 .bfloat16())
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(JL.dot(ja, jw), np.float32),
+                               rtol=1e-2, atol=1e-2)
+
+
+def test_bf16_head_gives_fp32_logits():
+    tcfg = t_reduced("granite-8b").with_(dtype="bfloat16")
+    params = TM.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    h = torch.randn((2, tcfg.d_model), dtype=torch.bfloat16)
+    assert TM._head(tcfg, params, h).dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "granite-moe-1b-a400m",
+                                  "whisper-large-v3", "pixtral-12b",
+                                  "recurrentgemma-2b"])
+def test_unported_configs_raise(arch):
+    with pytest.raises(NotImplementedError):
+        TM.model_template(t_reduced(arch))
