@@ -10,28 +10,36 @@ Phases, each raising on failure (the script then exits non-zero):
 2. build   -- build every kernel under src/repro_torch/kernels/csrc with
               nvcc (one process per source, in parallel), timed as set-up;
 3. kernels -- hold each kernel against its plain PyTorch version on the
-              card, at the main path's shapes (granite-8b, batch 4,
-              prefill 512, cache 640) and at small windowed / softcapped
-              / ragged / ring-buffer shapes, in bf16 (tolerance 3e-2) and
-              fp32 (2e-5); time kernel, plain version and one PyTorch
-              library call (scaled_dot_product_attention, a yardstick the
-              port never calls);
-4. parity  -- granite-8b reduced() in fp32: the CUDA model (kernels)
-              against the CPU model (plain versions) on the same params:
-              prefill logits, every cache leaf, 5 decode steps, 2e-3;
-5. serve   -- the main path: ServingEngine for full-width granite-8b
-              (36 layers, d_model 4096, random weights from a seed),
-              cold_start(), 3 ``generate`` requests of 16 new tokens and 1
-              ``score`` request, with the launch counters set to 0 just
-              before and read just after;
-6. breakdown -- for information: prefill and decode-step times, and a
-              torch.profiler trace of one request (device busy share,
-              kernel time by kind).
+              card, at the shapes of both main paths -- granite-8b
+              (batch 4, prefill 512, cache 640, hd 128, G 4) and
+              recurrentgemma-2b (batch 4, prefill 2048, window 2048,
+              hd 256, G 10 over one kv head; RG-LRU (4, 2048, 2560)) --
+              and at small windowed / softcapped / ragged / ring-buffer
+              shapes, in bf16 (tolerance 3e-2) and fp32 (2e-5); time
+              kernel, plain version and one PyTorch library call where
+              one computes the same function (scaled_dot_product_
+              attention, a yardstick the port never calls; none for the
+              RG-LRU scan);
+4. parity  -- reduced() granite-8b and recurrentgemma-2b in fp32: the
+              CUDA model (kernels) against the CPU model (plain versions)
+              on the same params: prefill logits, every cache leaf and
+              decode steps (recurrentgemma's run past its window of 16,
+              so the ring wraps), 2e-3;
+5. serve   -- the main paths, one after the other: ServingEngine for
+              full-width granite-8b (36 layers, d_model 4096) and then,
+              with granite's engine freed, full-width recurrentgemma-2b
+              (26 layers, d_model 2560), random weights from a seed;
+              cold_start(), 3 ``generate`` requests of 16 new tokens and
+              1 ``score`` request each, with the launch counters set to 0
+              just before each path and read just after;
+6. breakdown -- for information, after each path: prefill and
+              decode-step times, and a torch.profiler trace of one
+              request (device busy share, kernel time by kind).
 
-It prints one JSON line per kernel summary (``{"kernels": [...]}``) and
-ends with ``{"ok": true, "device": {...}}``.  Without CUDA, or without
-the rest of the repository beside it, it exits non-zero and prints no
-result.
+It prints one JSON line with an entry per kernel and configuration
+(``{"kernels": [...]}``) and ends with ``{"ok": true, "device": {...}}``.
+Without CUDA, or without the rest of the repository beside it, it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -54,8 +62,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": dict(rtol=3e-2, atol=3e-2),
        "float32": dict(rtol=2e-5, atol=2e-5)}
 MODEL_TOL = dict(rtol=2e-3, atol=2e-3)
-ARCH = "granite-8b"
-BATCH, PREFILL, CACHE, NEW_TOKENS, N_GENERATE = 4, 512, 640, 16, 3
+# the main paths: batch, prompt length, cache length (max_len), new tokens
+PATHS = {"granite-8b": dict(batch=4, prefill=512, cache=640, new=16),
+         "recurrentgemma-2b": dict(batch=4, prefill=2048, cache=2064,
+                                   new=16)}
+N_GENERATE = 3
 L2_BYTES = 50 * 2**20
 
 
@@ -118,11 +129,26 @@ def phase_build():
     logs = _build.build_all()
     dt = time.perf_counter() - t0
     for name, text in logs.items():
+        fn = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = _demangle(line.split("Function properties for")[1]
+                               .strip())
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name}: {fn}: {line.strip()}")
     log(f"[build] {len(logs)} sources compiled in {dt:.3f} s "
         f"(into {_build.build_dir()})")
+
+
+def _demangle(sym):
+    """The kernel instance's C++ name (c++filt where the toolkit's host
+    binutils have it, else the mangled symbol)."""
+    import shutil
+    if not shutil.which("c++filt"):
+        return sym
+    full = subprocess.run(["c++filt", sym], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    return full.split("::", 1)[-1].split("(")[0]  # e.g. flash_fwd<float, 256>
 
 
 # --------------------------------------------------------------- phase 3
@@ -141,17 +167,35 @@ def _check(name, got, want, dtype_name, case):
     return err
 
 
-def flash_cases(gen):
-    """Flash kernel vs plain on the card; returns the summary entry."""
+def _dtypes():
+    import torch
+    return ((torch.bfloat16, "bfloat16"), (torch.float32, "float32"))
+
+
+def _attn_shape(arch):
+    """(H, K, hd, window) of the path's attention layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import block_pattern_of
+    cfg = get_config(arch)
+    local = "attn_local" in block_pattern_of(cfg)
+    return (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.window_size if local else None)
+
+
+def flash_cases(gen, arch, small):
+    """Flash kernel vs plain on the card at the path's prefill shape and
+    at ``small`` cases; returns the summary entry (timed in bf16)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
-    B, H, K, hd, S = BATCH, 32, 8, 128, PREFILL
+    spec = PATHS[arch]
+    B, S = spec["batch"], spec["prefill"]
+    H, K, hd, window = _attn_shape(arch)
     G = H // K
+    shape = f"B={B} H={H} K={K} S={S} hd={hd} window={window} causal"
     main = {}
-    for dt in (torch.bfloat16, torch.float32):
-        dn = str(dt).split(".")[1]
+    for dt, dn in _dtypes():
         # main path shape, in model layout: q (B,S,K,G,hd), k/v (B,S,K,hd),
         # handed to the kernel as transposed views, as attn_apply does
         q5 = _rand(gen, (B, S, K, G, hd), dt)
@@ -159,20 +203,16 @@ def flash_cases(gen):
         v4 = _rand(gen, (B, S, K, hd), dt)
         args = (q5.reshape(B, S, H, hd).transpose(1, 2),
                 k4.transpose(1, 2), v4.transpose(1, 2))
-        got = flash_attention(*args, causal=True)
+        got = flash_attention(*args, causal=True, window=window)
         torch.cuda.synchronize()
-        want = flash_attention_plain(*args, causal=True)
-        main[dn] = _check("flash_attention", got, want, dn,
-                          f"B={B} H={H} K={K} S={S} hd={hd} causal")
-        for (b, h, kk, sq, skv, d, causal, window, cap, what) in [
-                (1, 4, 1, 40, 40, 32, True, 16, None, "MQA+window"),
-                (1, 2, 2, 33, 33, 16, True, None, 30.0, "softcap+ragged"),
-                (1, 4, 2, 100, 100, 64, True, None, None, "ragged GQA"),
-                (1, 2, 2, 16, 80, 16, False, None, None, "bidir Sq!=Skv")]:
+        want = flash_attention_plain(*args, causal=True, window=window)
+        main[dn] = _check("flash_attention", got, want, dn, shape)
+        del q5, k4, v4, args, got, want
+        for (b, h, kk, sq, skv, d, causal, win, cap, what) in small:
             q = _rand(gen, (b, h, sq, d), dt)
             k = _rand(gen, (b, kk, skv, d), dt)
             v = _rand(gen, (b, kk, skv, d), dt)
-            kw = dict(causal=causal, window=window, softcap=cap)
+            kw = dict(causal=causal, window=win, softcap=cap)
             got = flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
             _check("flash_attention", got, flash_attention_plain(q, k, v,
@@ -189,78 +229,96 @@ def flash_cases(gen):
         v4 = _rand(gen, (B, S, K, hd), dt)
         sets.append((q5.reshape(B, S, H, hd).transpose(1, 2),
                      k4.transpose(1, 2), v4.transpose(1, 2)))
+    # SDPA has no window; it computes the same function only where the
+    # window covers the whole prompt
+    if window is not None and window < S:
+        raise RuntimeError("flash timing: SDPA cannot stand in for a "
+                           "window shorter than the prompt")
     n0 = flash_attention.launches
-    ms = time_ms(lambda q, k, v: flash_attention(q, k, v, causal=True),
-                 sets)
+    ms = time_ms(lambda q, k, v: flash_attention(q, k, v, causal=True,
+                                                 window=window), sets)
     plain_ms = time_ms(lambda q, k, v: flash_attention_plain(
-        q, k, v, causal=True), sets)
+        q, k, v, causal=True, window=window), sets)
     lib_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), sets)
     flash_attention.launches = n0  # timing launches are not the path's
-    pairs = S * (S + 1) // 2  # causal (q, k) pairs per head
+    # causal (q, k) pairs per head inside the window
+    pairs = sum(min(i + 1, window or S) for i in range(S))
     flops = 4 * B * H * pairs * hd
     byts = 2 * (2 * B * H * S * hd) + 2 * (2 * B * K * S * hd)
     return _entry("flash_attention", "flash_attention.cu",
-                  "src/repro/kernels/flash_attention.py:92", main["bfloat16"],
-                  ms, plain_ms, lib_ms, flops, byts, "bfloat16")
+                  "src/repro/kernels/flash_attention.py:92", arch, shape,
+                  main["bfloat16"], ms, plain_ms, lib_ms, flops, byts,
+                  "bfloat16")
 
 
-def decode_cases(gen):
-    """Decode kernel vs plain on the card; returns the summary entry."""
+def _filled(n, S, B):
+    """Slot positions of a cache whose first n slots hold 0..n-1."""
+    import torch
+    base = torch.arange(S, device="cuda")
+    kv = torch.where(base < n, base, -1).to(torch.int32)
+    return (kv.expand(B, S).contiguous(),
+            torch.full((B,), n - 1, dtype=torch.int32, device="cuda"))
+
+
+def _ring(s, cur, b):
+    """Slot positions of an s-slot ring after position cur: slot i holds
+    the newest position p <= cur with p % s == i."""
+    import torch
+    base = torch.arange(s, device="cuda")
+    kv = torch.where(base <= cur % s, base + (cur // s) * s,
+                     base + (cur // s - 1) * s)
+    return (kv.to(torch.int32).expand(b, s).contiguous(),
+            torch.full((b,), cur, dtype=torch.int32, device="cuda"))
+
+
+def decode_cases(gen, arch, timed, small):
+    """Decode kernel vs plain on the card at the path's decode shape --
+    a partly filled cache (``timed="partly filled"``: mid-generation in
+    a position-indexed cache) and a wrapped ring -- and at ``small``
+    cases; returns the summary entry for the ``timed`` one (bf16)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_plain)
-    B, K, G, hd, S = BATCH, 8, 4, 128, CACHE
-    n_valid = PREFILL + 8  # a cache partly filled, as mid-generation
-    base = torch.arange(S, device="cuda")
-
-    def filled(n):
-        kv = torch.where(base < n, base, -1).to(torch.int32)
-        return (kv.expand(B, S).contiguous(),
-                torch.full((B,), n - 1, dtype=torch.int32, device="cuda"))
-
-    def ring(s, cur, b):
-        kv = torch.where(torch.arange(s, device="cuda") <= cur % s,
-                         torch.arange(s, device="cuda") + (cur // s) * s,
-                         torch.arange(s, device="cuda") + (cur // s - 1) * s)
-        return (kv.to(torch.int32).expand(b, s).contiguous(),
-                torch.full((b,), cur, dtype=torch.int32, device="cuda"))
-
+    spec = PATHS[arch]
+    H, K, hd, window = _attn_shape(arch)
+    G = H // K
+    B, S = spec["batch"], min(spec["cache"], window or spec["cache"])
+    layouts = {"partly filled": _filled(spec["prefill"] + 8, S, B),
+               "wrapped ring": _ring(S, S + 7, B)}
+    shape = f"B={B} K={K} G={G} S={S} hd={hd} window={window}"
     main = {}
-    for dt in (torch.bfloat16, torch.float32):
-        dn = str(dt).split(".")[1]
+    for dt, dn in _dtypes():
         # main path shape: q (B,1,K,G,hd) and the per-layer cache
         # (B,S,K,hd), handed over as views, as attn_decode does
         q = _rand(gen, (B, 1, K, G, hd), dt)[:, 0]
         kc = _rand(gen, (B, S, K, hd), dt)
         vc = _rand(gen, (B, S, K, hd), dt)
-        for what, (kv, qp) in (("partly filled", filled(n_valid)),
-                               ("wrapped ring", ring(S, S + 7, B))):
+        for what, (kv, qp) in layouts.items():
+            if what == "partly filled" and timed != what:
+                continue  # a local ring is never partly filled mid-path
             args = (q, kc.transpose(1, 2), vc.transpose(1, 2), qp, kv)
-            got = decode_attention(*args)
+            got = decode_attention(*args, window=window)
             torch.cuda.synchronize()
             err = _check("decode_attention", got,
-                         decode_attention_plain(*args), dn,
-                         f"B={B} K={K} G={G} S={S} hd={hd} {what}")
-            if what == "partly filled":
+                         decode_attention_plain(*args, window=window), dn,
+                         f"{shape} {what}")
+            if what == timed:
                 main[dn] = err
-        for (b, kk, g, s, d, window, cap, what) in [
-                (2, 2, 1, 40, 16, 16, None, "ring+window"),
-                (1, 2, 2, 33, 16, None, 30.0, "softcap"),
-                (1, 1, 4, 48, 16, None, None, "MQA ragged")]:
+        for (b, kk, g, s, d, win, cap, what) in small:
             qs = _rand(gen, (b, kk, g, d), dt)
             ks = _rand(gen, (b, kk, s, d), dt)
             vs = _rand(gen, (b, kk, s, d), dt)
-            if window:
-                kv, qp = ring(s, s + 7, b)
+            if win:
+                kv, qp = _ring(s, s + 7, b)
             else:
                 kvb = torch.arange(s, device="cuda")
                 kv = torch.where(kvb < s - 5, kvb, -1).to(
                     torch.int32).expand(b, s).contiguous()
                 qp = torch.full((b,), s - 6, dtype=torch.int32,
                                 device="cuda")
-            kw = dict(window=window, softcap=cap)
+            kw = dict(window=win, softcap=cap)
             got = decode_attention(qs, ks, vs, qp, kv, **kw)
             torch.cuda.synchronize()
             _check("decode_attention", got,
@@ -268,7 +326,7 @@ def decode_cases(gen):
                    what)
 
     dt = torch.bfloat16
-    kv, qp = filled(n_valid)
+    kv, qp = layouts[timed]
     one = 2 * B * S * K * hd * 2
     sets = []
     for _ in range(n_sets(one)):
@@ -277,27 +335,76 @@ def decode_cases(gen):
         vc = _rand(gen, (B, S, K, hd), dt)
         sets.append((q, kc.transpose(1, 2), vc.transpose(1, 2)))
     mask = (kv >= 0) & (kv <= qp[:, None])  # (B, S)
+    if window is not None:
+        mask &= kv > qp[:, None] - window
     n0 = decode_attention.launches
-    ms = time_ms(lambda q, k, v: decode_attention(q, k, v, qp, kv), sets)
+    ms = time_ms(lambda q, k, v: decode_attention(q, k, v, qp, kv,
+                                                  window=window), sets)
     plain_ms = time_ms(lambda q, k, v: decode_attention_plain(
-        q, k, v, qp, kv), sets)
+        q, k, v, qp, kv, window=window), sets)
     lib_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
         q.reshape(B, K * G, 1, hd), k, v, attn_mask=mask[:, None, None],
         enable_gqa=True), sets)
     decode_attention.launches = n0
     # what this run's data needs: k and v of the valid slots, every slot
     # position, q and o
-    flops = 4 * B * K * G * n_valid * hd
-    byts = 2 * (2 * B * K * n_valid * hd) + 4 * B * S + 4 * B \
+    n_valid = int(mask.sum())  # over the batch
+    flops = 4 * K * G * n_valid * hd
+    byts = 2 * (2 * K * n_valid * hd) + 4 * B * S + 4 * B \
         + 2 * (2 * B * K * G * hd)
     return _entry("decode_attention", "decode_attention.cu",
-                  "src/repro/kernels/decode_attention.py:70",
-                  main["bfloat16"], ms, plain_ms, lib_ms, flops, byts,
-                  "bfloat16")
+                  "src/repro/kernels/decode_attention.py:70", arch,
+                  f"{shape} {timed}", main["bfloat16"], ms, plain_ms,
+                  lib_ms, flops, byts, "bfloat16")
 
 
-def _entry(name, src, replaces, err, ms, plain_ms, lib_ms, flops, byts,
-           dtype_name):
+def rglru_cases(gen, arch):
+    """RG-LRU scan kernel vs plain on the card at the path's prefill
+    shape (fp32, as the model passes it, and bf16) and at the reference's
+    small ragged cases; returns the summary entry (timed in fp32)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
+    spec = PATHS[arch]
+    B, S, R = spec["batch"], spec["prefill"], get_config(arch).rglru_dim
+    shape = f"B={B} S={S} R={R}"
+    main = {}
+    for dt, dn in _dtypes():
+        cases = [(B, S, R, False, shape), (2, 64, 128, False, "B=2 S=64"),
+                 (1, 40, 130, True, "ragged R=130, h0"),
+                 (2, 17, 64, True, "ragged S=17, h0")]
+        for b, s, r, with_h0, what in cases:
+            # decays in (0, 1) like real RG-LRU coefficients
+            a = torch.sigmoid(_rand(gen, (b, s, r), torch.float32)).to(dt)
+            x = _rand(gen, (b, s, r), dt)
+            h0 = _rand(gen, (b, r), dt) if with_h0 else None
+            got = rglru_scan(a, x, h0)
+            torch.cuda.synchronize()
+            err = _check("rglru_scan", got, rglru_scan_plain(a, x, h0), dn,
+                         what)
+            if what == shape:
+                main[dn] = err
+
+    dt = torch.float32
+    one = 3 * B * S * R * 4
+    sets = [(torch.sigmoid(_rand(gen, (B, S, R), dt)), _rand(gen, (B, S, R),
+                                                             dt))
+            for _ in range(n_sets(one))]
+    n0 = rglru_scan.launches
+    ms = time_ms(rglru_scan, sets)
+    plain_ms = time_ms(rglru_scan_plain, sets, iters=5, warmup=1)
+    rglru_scan.launches = n0
+    # one multiply-add per element; a and b read once, h written once
+    flops = 2 * B * S * R
+    byts = 3 * B * S * R * 4
+    return _entry("rglru_scan", "rglru_scan.cu",
+                  "src/repro/kernels/rglru_scan.py:45", arch, shape,
+                  main["float32"], ms, plain_ms, None, flops, byts,
+                  "float32")
+
+
+def _entry(name, src, replaces, arch, shape, err, ms, plain_ms, lib_ms,
+           flops, byts, dtype_name):
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     t_bytes = byts / PEAK_BYTES_S * 1e3
     e = {"name": name, "route": "cuda",
@@ -305,43 +412,63 @@ def _entry(name, src, replaces, err, ms, plain_ms, lib_ms, flops, byts,
          "replaces": replaces, "launches": 0, "max_abs_err": err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
          "bound_by": "operations" if t_ops > t_bytes else "bytes",
-         "library_ms": lib_ms}
-    log(f"[kernels] {name} bf16 timing: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+         "library_ms": lib_ms, "path": arch,
+         "shape": f"{shape} {dtype_name}"}
+    lib = "none (no single PyTorch call computes it)" if lib_ms is None \
+        else f"{lib_ms:.4f} ms"
+    log(f"[kernels] {name} {arch} {dtype_name} timing: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library {lib}, bound "
         f"{e['bound_ms']:.4f} ms ({e['bound_by']}: {flops:.4g} flop, "
         f"{byts:.4g} B)")
     return e
 
 
 # --------------------------------------------------------------- phase 4
-def phase_parity():
+def _leaves(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaves(tree[k], f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", tree[k]
+
+
+def phase_parity(arch, n_dec):
+    """The reduced config in fp32, CUDA (kernels) against CPU (plain):
+    prefill logits, every cache leaf after the prefill and after the
+    last of ``n_dec`` decode steps, and every step's logits."""
     import torch
     from repro_torch.configs import get_reduced
     from repro_torch.models import model as M
-    cfg = get_reduced(ARCH)
+    cfg = get_reduced(arch)
     params = M.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+
     def to_cuda(tree):
         return {k: to_cuda(v) if isinstance(v, dict) else v.cuda()
                 for k, v in tree.items()}
     params_gpu = to_cuda(params)
-    B, T0, n_dec = 2, 8, 5
+    B, T0 = 2, 8
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab, (B, T0 + n_dec)).astype(np.int32))
     lc, cc, _ = M.prefill(cfg, params, toks[:, :T0], cache_len=T0 + n_dec)
     lg, cg, _ = M.prefill(cfg, params_gpu, toks[:, :T0].cuda(),
                           cache_len=T0 + n_dec)
     errs = [_close(lg, lc, "prefill logits")]
-    for key in ("k", "v", "pos"):
-        errs.append(_close(cg["scan"]["pos0"][key], cc["scan"]["pos0"][key],
-                           f"cache {key}"))
+    want = dict(_leaves(cc))
+    for name, got in _leaves(cg):
+        errs.append(_close(got, want[name], f"prefill cache {name}"))
     for i in range(n_dec):
         pos = torch.full((B,), T0 + i, dtype=torch.int32)
         tok = toks[:, T0 + i:T0 + i + 1]
         lc, cc = M.decode_step(cfg, params, tok, pos, cc)
         lg, cg = M.decode_step(cfg, params_gpu, tok.cuda(), pos.cuda(), cg)
         errs.append(_close(lg, lc, f"decode step {i} logits"))
-    log(f"[parity] {ARCH} reduced fp32, CUDA kernels vs CPU plain: max "
-        f"abs err {max(errs):.3e} (tolerance 2e-3) ok")
+    want = dict(_leaves(cc))
+    for name, got in _leaves(cg):
+        errs.append(_close(got, want[name], f"decoded cache {name}"))
+    log(f"[parity] {arch} reduced fp32, CUDA kernels vs CPU plain: "
+        f"{len(want)} cache leaves, {n_dec} decode steps to position "
+        f"{T0 + n_dec - 1} (window {cfg.window_size}): max abs err "
+        f"{max(errs):.3e} (tolerance 2e-3) ok")
 
 
 def _close(got, want, what):
@@ -353,62 +480,75 @@ def _close(got, want, what):
 
 
 # --------------------------------------------------------------- phase 5
-def phase_serve(kernels):
-    import torch
-    from repro_torch.configs import get_config
+def _kernel_counters():
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    return {"flash_attention": flash_attention,
+            "decode_attention": decode_attention, "rglru_scan": rglru_scan}
+
+
+def phase_serve(arch, entries):
+    """Drive one main path; fills the launches of its ``entries``."""
+    import torch
+    from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.serving import ServingEngine
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
+    spec = PATHS[arch]
+    B, P, CACHE, NEW = (spec["batch"], spec["prefill"], spec["cache"],
+                        spec["new"])
     torch.cuda.reset_peak_memory_stats()
-    eng = ServingEngine(cfg, batch_size=BATCH, prefill_len=PREFILL,
-                        max_len=CACHE, device="cuda")
+    eng = ServingEngine(cfg, batch_size=B, prefill_len=P, max_len=CACHE,
+                        device="cuda")
     cold = eng.cold_start()
     rep = eng.report()
-    log(f"[serve] {ARCH} full width: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {M.param_count(cfg) / 1e9:.3f} B params "
-        f"({cfg.dtype})")
-    log(f"[serve] cold_start_s {cold:.4f} by_group {rep['by_group']}")
+    log(f"[serve] {arch} full width: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {M.param_count(cfg)} params ({cfg.dtype}); batch "
+        f"{B}, prompt {P}, max_len {CACHE}, {NEW} new tokens")
+    log(f"[serve] {arch} cold_start_s {cold:.4f} by_group "
+        f"{rep['by_group']}")
     for row in rep["components"]:
         log(f"[serve]   {row['component']}: init_s {row['init_s']}")
 
+    counters = _kernel_counters()
     rng = np.random.default_rng(7)
-    flash_attention.launches = 0
-    decode_attention.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     lat, outs = [], []
     for _ in range(N_GENERATE):
-        toks = rng.integers(0, cfg.vocab, (BATCH, PREFILL))
-        out, dt = eng.serve("generate", toks, max_new_tokens=NEW_TOKENS)
+        toks = rng.integers(0, cfg.vocab, (B, P))
+        out, dt = eng.serve("generate", toks, max_new_tokens=NEW)
         lat.append(dt)
         outs.append((toks, out))
-    logits, dt_score = eng.serve("score", rng.integers(
-        0, cfg.vocab, (BATCH, PREFILL)))
-    n_flash = flash_attention.launches
-    n_decode = decode_attention.launches
+    logits, dt_score = eng.serve("score", rng.integers(0, cfg.vocab, (B, P)))
+    got = {name: fn.launches for name, fn in counters.items()}
 
-    L = cfg.n_layers
-    want_flash = L * (N_GENERATE + 1)
-    want_decode = L * (NEW_TOKENS - 1) * N_GENERATE
-    log(f"[serve] launches: flash_attention {n_flash} (want {want_flash} = "
-        f"{L} per prefill/forward x {N_GENERATE + 1}), decode_attention "
-        f"{n_decode} (want {want_decode} = {L} x {NEW_TOKENS - 1} steps x "
-        f"{N_GENERATE})")
-    if (n_flash, n_decode) != (want_flash, want_decode):
-        raise RuntimeError("the main path did not run through the kernels "
-                           "as expected")
+    pat, n_per, n_rem = M.layer_layout(cfg)
+    kinds = list(pat) * n_per + list(pat[:n_rem])
+    n_attn = sum(k.startswith("attn") for k in kinds)
+    n_rglru = kinds.count("rglru")
+    want = {"flash_attention": n_attn * (N_GENERATE + 1),
+            "decode_attention": n_attn * (NEW - 1) * N_GENERATE,
+            "rglru_scan": n_rglru * (N_GENERATE + 1)}
+    log(f"[serve] {arch} launches {got} (want {want}: {n_attn} attention "
+        f"and {n_rglru} RG-LRU layers; flash and rglru once per layer per "
+        f"prefill/forward x {N_GENERATE + 1}, decode once per attention "
+        f"layer x {NEW - 1} steps x {N_GENERATE})")
+    if got != want:
+        raise RuntimeError(f"{arch}: the main path did not run through the "
+                           "kernels as expected")
     for toks, out in outs:
-        if out.shape != (BATCH, NEW_TOKENS) or out.min() < 0 \
-                or out.max() >= cfg.vocab:
+        if out.shape != (B, NEW) or out.min() < 0 or out.max() >= cfg.vocab:
             raise RuntimeError(f"generate: bad tokens {out.shape}")
-    if logits.shape != (BATCH, PREFILL, cfg.vocab) \
-            or not np.isfinite(logits).all():
+    if logits.shape != (B, P, cfg.vocab) or not np.isfinite(logits).all():
         raise RuntimeError("score: logits not finite / wrong shape")
-    log(f"[serve] generate latency_s {[round(x, 4) for x in lat]}; "
+    del logits
+    log(f"[serve] {arch} generate latency_s {[round(x, 4) for x in lat]}; "
         f"score latency_s {dt_score:.4f}")
-    log(f"[serve] max_memory_allocated "
+    log(f"[serve] {arch} max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    log(f"[serve] first request tokens[0]: {outs[0][1][0].tolist()}")
+    log(f"[serve] {arch} first request tokens[0]: {outs[0][1][0].tolist()}")
 
     # for information: full-width prefill+decode logits against the
     # teacher-forced forward over the same tokens (bf16 model)
@@ -417,22 +557,22 @@ def phase_serve(kernels):
     params = eng._params
     t = torch.as_tensor(seq, dtype=torch.int32, device="cuda")
     h, _, _ = M.forward(cfg, params, t)
-    full = M._head(cfg, params, h[:, PREFILL - 1:])
-    lg, caches, _ = M.prefill(cfg, params, t[:, :PREFILL], cache_len=CACHE)
+    full = M._head(cfg, params, h[:, P - 1:])
+    del h
+    lg, caches, _ = M.prefill(cfg, params, t[:, :P], cache_len=CACHE)
     steps = [lg]
-    for i in range(NEW_TOKENS - 1):
-        pos = torch.full((BATCH,), PREFILL + i, dtype=torch.int32,
-                         device="cuda")
-        lg, caches = M.decode_step(cfg, params,
-                                   t[:, PREFILL + i:PREFILL + i + 1], pos,
+    for i in range(NEW - 1):
+        pos = torch.full((B,), P + i, dtype=torch.int32, device="cuda")
+        lg, caches = M.decode_step(cfg, params, t[:, P + i:P + i + 1], pos,
                                    caches)
         steps.append(lg)
     inc = torch.stack(steps, dim=1)
     rel = ((inc - full).abs().max() / full.abs().max()).item()
-    log(f"[serve] info: prefill+decode vs teacher-forced forward logits, "
-        f"max abs diff / max abs = {rel:.3e} (bf16)")
-    kernels[0]["launches"] = n_flash
-    kernels[1]["launches"] = n_decode
+    log(f"[serve] {arch} info: prefill+decode vs teacher-forced forward "
+        f"over {seq.shape[1]} tokens, logits max abs diff / max abs = "
+        f"{rel:.3e} ({cfg.dtype})")
+    for e in entries:
+        e["launches"] = got[e["name"]]
     return eng
 
 
@@ -444,10 +584,12 @@ def phase_breakdown(eng):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    arch = eng.cfg.name
+    spec = PATHS[arch]
+    B, P, NEW = spec["batch"], spec["prefill"], spec["new"]
     exes, params = eng.registry["compile.generate"].value, eng._params
     toks = torch.as_tensor(np.random.default_rng(11).integers(
-        0, eng.cfg.vocab, (BATCH, PREFILL)), dtype=torch.int32,
-        device="cuda")
+        0, eng.cfg.vocab, (B, P)), dtype=torch.int32, device="cuda")
 
     def request(times):
         torch.cuda.synchronize()
@@ -456,9 +598,8 @@ def phase_breakdown(eng):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         tok = nxt[:, None]
-        for i in range(NEW_TOKENS - 1):
-            pos = torch.full((BATCH,), PREFILL + i, dtype=torch.int32,
-                             device="cuda")
+        for i in range(NEW - 1):
+            pos = torch.full((B,), P + i, dtype=torch.int32, device="cuda")
             t0 = time.perf_counter()
             tok, caches = exes["decode"](params, tok, pos, caches)
             torch.cuda.synchronize()
@@ -467,8 +608,8 @@ def phase_breakdown(eng):
     times = []
     request(times)
     steps = sorted(times[1:])
-    log(f"[breakdown] prefill_s {times[0]:.4f}; decode step_s median "
-        f"{steps[len(steps) // 2]:.4f} min {steps[0]:.4f} max "
+    log(f"[breakdown] {arch} prefill_s {times[0]:.4f}; decode step_s "
+        f"median {steps[len(steps) // 2]:.4f} min {steps[0]:.4f} max "
         f"{steps[-1]:.4f} ({len(steps)} steps)")
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -485,6 +626,7 @@ def phase_breakdown(eng):
         name = ev.name.lower()
         kind = ("flash_attention" if "flash_fwd" in name else
                 "decode_attention" if "decode_" in name else
+                "rglru_scan" if "rglru_fwd" in name else
                 "matmul" if any(k in name for k in (
                     "gemm", "nvjet", "xmma", "cutlass", "gemv")) else
                 "other")
@@ -492,10 +634,10 @@ def phase_breakdown(eng):
         by_name[ev.name] = by_name.get(ev.name, 0.0) + us
     busy = sum(by_kind.values())
     if busy == 0:
-        log("[breakdown] device busy share: not measured (the profiler "
-            "recorded no device events)")
+        log(f"[breakdown] {arch} device busy share: not measured (the "
+            "profiler recorded no device events)")
         return
-    log(f"[breakdown] profiled request: wall {wall_us / 1e3:.2f} ms, "
+    log(f"[breakdown] {arch} profiled request: wall {wall_us / 1e3:.2f} ms, "
         f"device busy {busy / 1e3:.2f} ms (share {busy / wall_us:.4f}, "
         f"idle {1 - busy / wall_us:.4f}; profiler overhead included)")
     for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
@@ -506,16 +648,43 @@ def phase_breakdown(eng):
 
 
 def main():
+    import gc
+
     import torch
     smi = phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = [flash_cases(gen), decode_cases(gen)]
-    phase_parity()
-    eng = phase_serve(kernels)
-    phase_breakdown(eng)
+    kernels = {
+        "granite-8b": [
+            flash_cases(gen, "granite-8b", [
+                (1, 4, 1, 40, 40, 32, True, 16, None, "MQA+window"),
+                (1, 2, 2, 33, 33, 16, True, None, 30.0, "softcap+ragged"),
+                (1, 4, 2, 100, 100, 64, True, None, None, "ragged GQA"),
+                (1, 2, 2, 16, 80, 16, False, None, None, "bidir Sq!=Skv")]),
+            decode_cases(gen, "granite-8b", "partly filled", [
+                (2, 2, 1, 40, 16, 16, None, "ring+window"),
+                (1, 2, 2, 33, 16, None, 30.0, "softcap"),
+                (1, 1, 4, 48, 16, None, None, "MQA ragged")])],
+        "recurrentgemma-2b": [
+            flash_cases(gen, "recurrentgemma-2b", [
+                (1, 10, 1, 100, 100, 256, True, 48, None,
+                 "hd 256 G 10 ragged+window")]),
+            decode_cases(gen, "recurrentgemma-2b", "wrapped ring", [
+                (2, 1, 10, 96, 256, 96, None, "hd 256 G 10 ring+window"),
+                (1, 1, 10, 33, 256, None, None, "hd 256 G 10 ragged")]),
+            rglru_cases(gen, "recurrentgemma-2b")],
+    }
+    phase_parity("granite-8b", 5)
+    phase_parity("recurrentgemma-2b", 20)  # past the reduced window of 16
+    for arch, entries in kernels.items():
+        eng = phase_serve(arch, entries)
+        phase_breakdown(eng)
+        del eng  # free this path's weights before the next path's
+        gc.collect()
+        torch.cuda.empty_cache()
     print(smi)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": [e for es in kernels.values()
+                                  for e in es]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,3 +9,4 @@ in ``ops.py``.
 
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: F401
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
+from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: F401

@@ -12,11 +12,18 @@
 // in bf16, far below the ~295 op/byte balance point.  The bound is the
 // cache's bytes over 3.35 TB/s.  What the design does about it: the grid
 // must put enough loads in flight to draw that rate, and at decode there
-// are only B*K (b, kv-head) pairs (32 at B=4, K=8, on 132 SMs).  So the
-// cache axis is split across blocks (flash-decoding): each block keeps
-// per-split m/l/acc for its G heads in fp32 scratch, and a second
-// launch combines the splits.  Each k/v tile is staged once in shared
-// memory and serves all G heads, as on the TPU.
+// are only B*K (b, kv-head) pairs for 132 SMs (32 at B=4, K=8; 4 for
+// recurrentgemma's single kv head).  So the cache axis is split across
+// blocks (flash-decoding): each block keeps per-split m/l/acc for its G
+// heads in fp32 scratch, and a second launch combines the splits.
+// Each k/v tile is staged once in shared memory and serves all G heads,
+// as on the TPU.
+//
+// Warp w holds query heads w, w + 4, ... (HPW of them: 2 when G <= 8,
+// 4 when G <= 16, chosen per launch so that G <= 8 keeps the smaller
+// instance); lane j owns slot j of the tile for the scores and, for the
+// p.v product, output dims [4j, 4j + 4) of every 128-dim chunk of the
+// head (two chunks at hd = 256).
 //
 // Slots past the cache length S are excluded (they contribute nothing),
 // not given -1e30: a row with no valid slot averages v over the S real
@@ -35,8 +42,7 @@ namespace {
 constexpr int DKV = 32;            // slots per tile (one per lane)
 constexpr int NWARP = 4;
 constexpr int NTHREAD = NWARP * 32;
-constexpr int HPW = 2;             // query heads per warp: G <= NWARP * HPW
-constexpr int MAXG = NWARP * HPW;
+constexpr int MAXG = NWARP * 4;    // query heads per kv head: G <= 16
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -66,11 +72,12 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int HD>
+template <int HD, int HPW>
 constexpr size_t smem_bytes() {
-  // Q (MAXG x HD+4), K (DKV x HD+4), V (DKV x HD), slot positions (DKV)
-  return sizeof(float) * (size_t(MAXG) * (HD + 4) + size_t(DKV) * (HD + 4) +
-                          size_t(DKV) * HD + DKV);
+  // Q (G <= NWARP*HPW rows x HD+4), K (DKV x HD+4), V (DKV x HD), slot
+  // positions (DKV)
+  return sizeof(float) * (size_t(NWARP * HPW) * (HD + 4) +
+                          size_t(DKV) * (HD + 4) + size_t(DKV) * HD + DKV);
 }
 
 // grid (n_split, K, B): block (split, kh, b) covers slots
@@ -78,7 +85,7 @@ constexpr size_t smem_bytes() {
 // g, the split's running max and denominator to part_ml[(idx) * 2 + {0,1}]
 // and its unnormalised accumulator to part_acc[idx * HD + d], with
 // idx = ((b * K + kh) * n_split + split) * G + g.
-template <typename T, int HD>
+template <typename T, int HD, int HPW>
 __global__ void __launch_bounds__(NTHREAD)
 decode_split(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const int32_t* __restrict__ q_pos,
@@ -89,9 +96,10 @@ decode_split(const T* __restrict__ q, const T* __restrict__ k,
              int64_t psb, int64_t pss, int window, float softcap,
              float scale) {
   constexpr int LD = HD + 4;
+  constexpr int NC = (HD + 127) / 128;  // 128-dim chunks a lane spans
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + MAXG * LD;
+  float* Ks = Qs + NWARP * HPW * LD;
   float* Vs = Ks + DKV * LD;
   int* Pos = reinterpret_cast<int*>(Vs + DKV * HD);
 
@@ -109,13 +117,15 @@ decode_split(const T* __restrict__ q, const T* __restrict__ k,
     Qs[g * LD + d] = to_f(q[b * qsb + kh * qsk + g * qsg + d]);
   }
 
-  const bool dim_ok = 4 * lane < HD;
-  float m[HPW], l[HPW], acc[HPW][4];
+  // lane owns output dims [128c + 4l, 128c + 4l + 4) for c < NC
+  const bool dim_ok = 4 * lane < HD;  // (chunk 0; full chunks beyond it)
+  float m[HPW], l[HPW], acc[HPW][4 * NC];
 #pragma unroll
   for (int i = 0; i < HPW; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
   }
 
   for (int t0 = t_begin; t0 < t_end; t0 += DKV) {
@@ -159,24 +169,26 @@ decode_split(const T* __restrict__ q, const T* __restrict__ k,
       const float p = in_range ? expf(x - m_new) : 0.f;
       l[i] = l[i] * alpha + p;
       m[i] = m_new;
-      float a0 = acc[i][0] * alpha, a1 = acc[i][1] * alpha,
-            a2 = acc[i][2] * alpha, a3 = acc[i][3] * alpha;
+      float a[4 * NC];
+#pragma unroll
+      for (int c = 0; c < 4 * NC; ++c) a[c] = acc[i][c] * alpha;
 #pragma unroll 8
       for (int j = 0; j < DKV; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
         if (dim_ok) {
-          const float4 vv =
-              *reinterpret_cast<const float4*>(Vs + j * HD + 4 * lane);
-          a0 = fmaf(pj, vv.x, a0);
-          a1 = fmaf(pj, vv.y, a1);
-          a2 = fmaf(pj, vv.z, a2);
-          a3 = fmaf(pj, vv.w, a3);
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            const float4 vv = *reinterpret_cast<const float4*>(
+                Vs + j * HD + 128 * c + 4 * lane);
+            a[4 * c] = fmaf(pj, vv.x, a[4 * c]);
+            a[4 * c + 1] = fmaf(pj, vv.y, a[4 * c + 1]);
+            a[4 * c + 2] = fmaf(pj, vv.z, a[4 * c + 2]);
+            a[4 * c + 3] = fmaf(pj, vv.w, a[4 * c + 3]);
+          }
         }
       }
-      acc[i][0] = a0;
-      acc[i][1] = a1;
-      acc[i][2] = a2;
-      acc[i][3] = a3;
+#pragma unroll
+      for (int c = 0; c < 4 * NC; ++c) acc[i][c] = a[c];
     }
   }
 
@@ -187,11 +199,12 @@ decode_split(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = warp_sum(l[i]);
     const int64_t idx = (int64_t(b * K + kh) * n_split + split) * G + g;
     if (dim_ok) {
-      float* pa = part_acc + idx * HD + 4 * lane;
-      pa[0] = acc[i][0];
-      pa[1] = acc[i][1];
-      pa[2] = acc[i][2];
-      pa[3] = acc[i][3];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        float* pa = part_acc + idx * HD + 128 * c + 4 * lane;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pa[e] = acc[i][4 * c + e];
+      }
     }
     if (lane == 0) {
       part_ml[idx * 2] = m[i];
@@ -223,15 +236,15 @@ __global__ void decode_combine(const float* __restrict__ part_acc,
   o[b * osb + kh * osk + g * osg + d] = from_f<T>(A / fmaxf(L, 1e-30f));
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int32_t* q_pos, const int32_t* kv_pos, void* o,
-                   float* part_acc, float* part_ml, int B, int K, int G,
-                   int S, int chunk, int n_split, const int64_t* st,
-                   int window, float softcap, float scale,
-                   cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  auto kern = decode_split<T, HD>;
+template <typename T, int HD, int HPW>
+cudaError_t launch_hpw(const void* q, const void* k, const void* v,
+                       const int32_t* q_pos, const int32_t* kv_pos, void* o,
+                       float* part_acc, float* part_ml, int B, int K, int G,
+                       int S, int chunk, int n_split, const int64_t* st,
+                       int window, float softcap, float scale,
+                       cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<HD, HPW>();
+  auto kern = decode_split<T, HD, HPW>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
@@ -246,6 +259,23 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       part_acc, part_ml, static_cast<T*>(o), n_split, HD, st[11], st[12],
       st[13]);
   return cudaGetLastError();
+}
+
+// the smaller instance (2 heads a warp) for G <= 8, else 4 heads a warp
+template <typename T, int HD>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const int32_t* q_pos, const int32_t* kv_pos, void* o,
+                   float* part_acc, float* part_ml, int B, int K, int G,
+                   int S, int chunk, int n_split, const int64_t* st,
+                   int window, float softcap, float scale,
+                   cudaStream_t stream) {
+  if (G <= NWARP * 2)
+    return launch_hpw<T, HD, 2>(q, k, v, q_pos, kv_pos, o, part_acc,
+                                part_ml, B, K, G, S, chunk, n_split, st,
+                                window, softcap, scale, stream);
+  return launch_hpw<T, HD, 4>(q, k, v, q_pos, kv_pos, o, part_acc, part_ml,
+                              B, K, G, S, chunk, n_split, st, window,
+                              softcap, scale, stream);
 }
 
 template <typename T>
@@ -268,6 +298,9 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 128: return launch<T, 128>(q, k, v, q_pos, kv_pos, o, part_acc,
                                     part_ml, B, K, G, S, chunk, n_split, st,
                                     window, softcap, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, q_pos, kv_pos, o, part_acc,
+                                    part_ml, B, K, G, S, chunk, n_split, st,
+                                    window, softcap, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -281,7 +314,7 @@ extern "C" {
 // k_s, v_b, v_k, v_s, pos_b, pos_s, o_b, o_k, o_g}.  q_pos (B,) and
 // kv_pos int32.  part_acc: n_split*B*K*G*hd floats, part_ml:
 // n_split*B*K*G*2 floats of scratch.  dtype: 0 = float32, 1 = bfloat16.
-// window <= 0 and softcap <= 0 mean none.  G must be <= 8.  Returns the
+// window <= 0 and softcap <= 0 mean none.  G must be <= 16.  Returns the
 // first failing launch's cudaError_t (0 = success).
 int decode_attention_fwd(const void* q, const void* k, const void* v,
                          const void* q_pos, const void* kv_pos, void* o,

@@ -21,7 +21,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
 
 NEG_INF = -1e30
-MAX_GROUP = 8      # query heads per kv head the kernel holds (G <= 8)
+MAX_GROUP = 16     # query heads per kv head the kernel holds (G <= 16)
 TILE = 32          # slots per kernel tile; a split is a multiple of it
 TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
 

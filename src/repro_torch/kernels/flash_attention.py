@@ -19,7 +19,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -55,8 +55,9 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
 
     Returns (B, H, Sq, hd) in q.dtype.  On CUDA the inputs may be any
     strided views whose last dim is contiguous (the model passes its
-    (B, S, K, G, hd) activations transposed, not copied); the output
-    takes q's strides.
+    (B, S, K, G, hd) activations transposed, not copied), with k's and
+    v's rows 16-byte aligned (the kernel loads them as vectors); the
+    output takes q's strides.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -103,3 +104,16 @@ def _check(q, k, v, H, K, hd):
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: head_dim must be contiguous")
+    if not (rows_aligned(k) and rows_aligned(v)):
+        raise ValueError("flash_attention: k and v rows must start on "
+                         "16-byte boundaries (the kernel reads them as "
+                         "16-byte vectors)")
+
+
+def rows_aligned(t) -> bool:
+    """Whether every row of ``t`` (last dim contiguous) starts on a
+    16-byte boundary: its data pointer and its other strides, in bytes,
+    are multiples of 16."""
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        (st * es) % 16 == 0 for st in t.stride()[:-1])

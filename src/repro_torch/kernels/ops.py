@@ -1,11 +1,12 @@
-"""Model-layout wrappers around the attention kernels.
+"""Model-layout wrappers around the kernels.
 
 The model keeps GQA activations as (B, S, K, G, hd) and caches as
 (B, T, K, hd).  These wrappers hand the kernels transposed *views* of
 those tensors (the kernels read through strides), so neither the
 activations nor the KV cache are copied into kernel layout.  The model's
-``attn_apply`` and ``attn_decode`` call them on every device: a CUDA
-tensor launches the kernels, a CPU tensor runs their plain versions.
+``attn_apply``, ``attn_decode`` and ``rglru_apply`` call them on every
+device: a CUDA tensor launches the kernels, a CPU tensor runs their
+plain versions.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rglru_scan import rglru_scan
 
 
 def attention_op(q, k, v, *, causal=True, window=None, softcap=None,
@@ -44,3 +46,8 @@ def decode_attention_op(q, k, v, q_pos, kv_pos, *, window=None,
                          q_pos.to(torch.int32), kv_pos.to(torch.int32),
                          window=window, softcap=softcap)
     return o[:, None]
+
+
+def rglru_op(a, gated, h0=None):
+    """Diagonal linear recurrence in model layout (B, S, R)."""
+    return rglru_scan(a, gated, h0)

@@ -8,3 +8,6 @@ from repro_torch.kernels.decode_attention import (  # noqa: F401
 from repro_torch.kernels.flash_attention import (  # noqa: F401
     flash_attention_plain as ref_flash_attention,
 )
+from repro_torch.kernels.rglru_scan import (  # noqa: F401
+    rglru_scan_plain as ref_rglru_scan,
+)

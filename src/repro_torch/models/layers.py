@@ -1,5 +1,6 @@
-"""Building blocks of the dense decoder (PyTorch port of
-``repro.models.layers``, dense ``attn_global`` subset).
+"""Building blocks of the decoder (PyTorch port of
+``repro.models.layers``: global and local attention, the gated MLP and
+the RG-LRU recurrent block).
 
 Each block keeps the reference's three parts: ``*_template(cfg)`` (a
 flat dict ``name -> ParamSpec``), ``*_apply`` (full sequence) and
@@ -7,11 +8,11 @@ flat dict ``name -> ParamSpec``), ``*_apply`` (full sequence) and
 the ``(in, out)`` matrix layout are the reference's, so a parameter
 tree converts with no transposes (``repro_torch.models.convert``).
 
-Attention goes through ``repro_torch.kernels.ops``: on a CUDA tensor
-that launches the hand-written kernels, on a CPU tensor it runs their
-plain PyTorch versions.  ``attention`` below is the reference's einsum
-path in model layout, kept as the plain yardstick the tests hold the
-kernel wrappers against.
+Attention and the RG-LRU scan go through ``repro_torch.kernels.ops``:
+on a CUDA tensor that launches the hand-written kernels, on a CPU
+tensor it runs their plain PyTorch versions.  ``attention`` below is the
+reference's einsum path in model layout, kept as the plain yardstick
+the tests hold the kernel wrappers against.
 
 Numerics policy (as the reference): parameters and activations are
 ``cfg.tdtype``; matmuls accumulate in fp32 (cuBLAS and the CPU GEMMs do
@@ -40,7 +41,7 @@ NEG_INF = -1e30
 class ParamSpec:
     shape: tuple[int, ...]
     axes: tuple[Optional[str], ...]  # logical axes, len == ndim
-    init: str = "normal"  # "normal" | "zeros"
+    init: str = "normal"  # "normal" | "zeros" | "ones"
     scale: Optional[float] = None  # None => 1/sqrt(fan_in)
 
     def std(self) -> float:
@@ -52,6 +53,8 @@ class ParamSpec:
         """Initialize ``out`` (of this spec's shape) in place."""
         if self.init == "zeros":
             return out.zero_()
+        if self.init == "ones":
+            return out.fill_(1.0)
         return out.normal_(0.0, self.std(), generator=generator)
 
 
@@ -141,8 +144,24 @@ def cache_write(cache, new, pos):
     return cache
 
 
+def causal_conv1d(x, w, b, state=None):
+    """Depthwise causal temporal conv.
+
+    x: (B, S, D); w: (W, D); b: (D,).  state: (B, W-1, D) history or None.
+    Returns (y, new_state) where new_state holds the trailing W-1 inputs.
+    """
+    W = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], W - 1, x.shape[-1]),
+                            dtype=x.dtype, device=x.device)
+    xp = torch.cat([state, x], dim=1)  # (B, S+W-1, D)
+    y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(W))
+    new_state = xp[:, -(W - 1):] if W > 1 else state
+    return (y + b).to(x.dtype), new_state
+
+
 # --------------------------------------------------------------------------
-# attention block (dense, attn_global)
+# attention block (attn_global, attn_local)
 # --------------------------------------------------------------------------
 
 def attn_template(cfg: ArchConfig):
@@ -173,49 +192,72 @@ def _project_qkv(p, cfg, x):
     return q, k, v
 
 
-def attn_apply(p, cfg, x, positions, *, make_cache=0):
+def attn_apply(p, cfg, x, positions, *, kind="attn_global", make_cache=0):
     """Full-sequence causal attention from position 0.
 
+    kind: attn_global | attn_local (window ``cfg.window_size``).
     Returns (y, cache|None); ``make_cache`` > 0 emits a decode cache of
-    that many slots (position-indexed: the prefill fills slots [0, S)).
+    that many slots (a local cache holds at most ``cfg.window_size``).
     """
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     q, k, v = _project_qkv(p, cfg, x)
+    window = cfg.window_size if kind == "attn_local" else None
     if cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    o = ops.attention_op(q, k, v, causal=True, softcap=cfg.attn_softcap,
-                         positions=positions)
+    o = ops.attention_op(q, k, v, causal=True, window=window,
+                         softcap=cfg.attn_softcap, positions=positions)
     y = dot(o.reshape(B, S, H * hd), p["wo"])
 
     cache = None
     if make_cache:
-        n = min(S, make_cache)
-        pad = make_cache - n
-        cache = {
-            "k": F.pad(k[:, S - n:], (0, 0, 0, 0, 0, pad)),
-            "v": F.pad(v[:, S - n:], (0, 0, 0, 0, 0, pad)),
-            "pos": F.pad(positions[:, S - n:].to(torch.int32), (0, pad),
-                         value=-1),
-        }
+        slots = make_cache if kind == "attn_global" else min(
+            make_cache, cfg.window_size)
+        n = min(S, slots)
+        tail_pos = positions[:, S - n:].to(torch.int32)
+        kt, vt = k[:, S - n:], v[:, S - n:]
+        if kind == "attn_global" or n < slots:
+            # the prefill starts at position 0, so the tail maps to slots
+            # [0, n): a plain pad
+            pad = slots - n
+            cache = {"k": F.pad(kt, (0, 0, 0, 0, 0, pad)),
+                     "v": F.pad(vt, (0, 0, 0, 0, 0, pad)),
+                     "pos": F.pad(tail_pos, (0, pad), value=-1)}
+        else:
+            # full local ring buffer: slot = position % slots, which for
+            # the last `slots` positions is a cyclic roll of the tail
+            # (attention_op checked positions == 0..S-1, so the tail's first
+            # position is S - n: no device read)
+            shift = (S - n) % slots
+            cache = {"k": torch.roll(kt, shift, dims=1),
+                     "v": torch.roll(vt, shift, dims=1),
+                     "pos": torch.roll(tail_pos, shift, dims=1)}
     return y, cache
 
 
-def attn_decode(p, cfg, x, positions, cache):
-    """Single-token attention with a position-indexed KV cache, updated
-    in place.  x: (B, 1, D); positions: (B,).  Returns (y, cache)."""
+def attn_decode(p, cfg, x, positions, cache, *, kind="attn_global"):
+    """Single-token attention with a KV cache, updated in place.
+    x: (B, 1, D); positions: (B,).  Returns (y, cache).
+
+    Global caches are position-indexed (slot = position); local caches are
+    ring buffers (slot = position % slots) with explicit slot positions.
+    """
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim
     q, k, v = _project_qkv(p, cfg, x)
     if cfg.use_rope:
         q = rope(q, positions[:, None], cfg.rope_theta)
         k = rope(k, positions[:, None], cfg.rope_theta)
-    cache_write(cache["k"], k[:, 0], positions)
-    cache_write(cache["v"], v[:, 0], positions)
-    cache_write(cache["pos"], positions, positions)
+    slots = cache["k"].shape[1]
+    slot = positions % slots if kind == "attn_local" else positions
+    window = cfg.window_size if kind == "attn_local" else None
+    cache_write(cache["k"], k[:, 0], slot)
+    cache_write(cache["v"], v[:, 0], slot)
+    cache_write(cache["pos"], positions, slot)
     o = ops.decode_attention_op(q, cache["k"], cache["v"], positions,
-                                cache["pos"], softcap=cfg.attn_softcap)
+                                cache["pos"], window=window,
+                                softcap=cfg.attn_softcap)
     return dot(o.reshape(B, 1, H * hd), p["wo"]), cache
 
 
@@ -237,3 +279,70 @@ def mlp_apply(p, x):
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(g.to(f32), approximate="tanh").to(x.dtype) * u
     return dot(h, p["wo"])
+
+
+# --------------------------------------------------------------------------
+# RG-LRU recurrent block (recurrentgemma / Griffin)
+# --------------------------------------------------------------------------
+
+def rglru_template(cfg: ArchConfig):
+    D = cfg.d_model
+    R = cfg.rglru_dim or D
+    W = cfg.conv_width
+    return {
+        "wx": ParamSpec((D, R), ("embed", "ff")),  # recurrence branch in
+        "wg": ParamSpec((D, R), ("embed", "ff")),  # gate branch in
+        "wo": ParamSpec((R, D), ("ff", "embed")),
+        "conv_w": ParamSpec((W, R), (None, "ff"), scale=1.0 / W),
+        "conv_b": ParamSpec((R,), ("ff",), init="zeros"),
+        "lam": ParamSpec((R,), ("ff",), init="ones"),  # decay logits
+        "w_a": ParamSpec((R, R), ("ff", None)),  # recurrence gate r_t
+        "w_i": ParamSpec((R, R), ("ff", None)),  # input gate i_t
+    }
+
+
+_RGLRU_C = 8.0  # Griffin's fixed decay temperature
+
+
+def _rglru_coeffs(p, u):
+    """Gates and log-decay for RG-LRU.  u: (B, S, R) post-conv input.
+    Returns (a, gated), both fp32."""
+    u32 = u.to(f32)
+    r = torch.sigmoid(torch.matmul(u32, p["w_a"].to(f32)))
+    i = torch.sigmoid(torch.matmul(u32, p["w_i"].to(f32)))
+    lam = p["lam"].to(f32)
+    # jax.nn.softplus is logaddexp(x, 0) (torch's softplus turns linear
+    # above a threshold)
+    log_a = -_RGLRU_C * r * torch.logaddexp(lam, torch.zeros_like(lam))
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a),
+                                       1e-12)) * i * u32
+    return a, gated
+
+
+def rglru_apply(p, cfg, x, *, make_cache=False):
+    """Full-sequence RG-LRU block; the recurrence runs in ``ops.rglru_op``
+    (the kernel on a CUDA tensor, its plain version on a CPU tensor)."""
+    u = dot(x, p["wx"])
+    gate = F.gelu(dot(x, p["wg"]).to(f32), approximate="tanh").to(x.dtype)
+    u, conv_state = causal_conv1d(u, p["conv_w"], p["conv_b"])
+    a, gated = _rglru_coeffs(p, u)
+    h = ops.rglru_op(a, gated)
+    y = dot(h.to(x.dtype) * gate, p["wo"])
+    cache = None
+    if make_cache:
+        cache = {"h": h[:, -1].to(f32), "conv": conv_state}
+    return y, cache
+
+
+def rglru_decode(p, cfg, x, cache):
+    """One-step RG-LRU.  x: (B, 1, D); cache: {"h": (B,R) f32, "conv"}.
+    Returns (y, new state): the state is replaced, not updated in place."""
+    u = dot(x, p["wx"])
+    gate = F.gelu(dot(x, p["wg"]).to(f32), approximate="tanh").to(x.dtype)
+    u, conv_state = causal_conv1d(u, p["conv_w"], p["conv_b"],
+                                  state=cache["conv"])
+    a, gated = _rglru_coeffs(p, u)
+    h = cache["h"] * a[:, 0] + gated[:, 0]  # (B, R)
+    y = dot(h[:, None].to(x.dtype) * gate, p["wo"])
+    return y, {"h": h, "conv": conv_state}

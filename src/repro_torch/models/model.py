@@ -1,12 +1,15 @@
-"""Dense decoder LM (PyTorch port of ``repro.models.model``, dense
-subset: every layer an ``attn_global`` block with a gated MLP).
+"""Decoder LM (PyTorch port of ``repro.models.model``, for configs whose
+layers are ``attn_global``, ``attn_local`` and ``rglru`` blocks, each
+with a gated MLP: the dense decoders and recurrentgemma).
 
 Layers are grouped into periods as in the reference; parameters for
 each period position are stacked over ``n_periods`` (``layers/scan/
-pos0/...``), so a reference parameter tree converts with no reshaping.
-Where the reference drives the stack with ``lax.scan``/``fori_loop``,
-the port runs a Python loop over the stacked index; decode writes each
-layer's slice of the stacked caches in place.
+pos0/...``), and layers that do not fill a whole period form a second
+stacked group of depth 1 (``layers/rem_scan/pos{j}``), so a reference
+parameter tree converts with no reshaping.  Where the reference drives
+the stack with ``lax.scan``/``fori_loop``, the port runs a Python loop
+over the stacked index; decode writes each layer's slice of the stacked
+caches in place.
 
 Public surface:
   block_pattern_of(cfg)   -> per-period block kinds
@@ -31,19 +34,22 @@ from repro_torch.models.layers import ParamSpec
 
 f32 = torch.float32
 
-# config flags the dense subset does not implement (value -> unsupported)
-_UNSUPPORTED = ("window_pattern", "block_pattern", "moe", "kv_quant",
-                "encoder_layers", "vision_tokens", "sandwich_norm",
-                "qk_norm", "learned_pos_embed")
+# config flags the port does not implement (value -> unsupported)
+_UNSUPPORTED = ("window_pattern", "moe", "kv_quant", "encoder_layers",
+                "vision_tokens", "sandwich_norm", "qk_norm",
+                "learned_pos_embed")
+_KINDS = ("attn_global", "attn_local", "rglru")  # block kinds ported
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for a config outside the dense subset."""
+    """Raise NotImplementedError for a config outside the ported subset."""
     bad = [f for f in _UNSUPPORTED if getattr(cfg, f)]
+    bad += [f"block {k!r}" for k in (cfg.block_pattern or ())
+            if k not in _KINDS]
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(bad)} not ported yet (the PyTorch "
-            f"port covers plain dense attn_global decoders)")
+            f"port covers decoders of {', '.join(_KINDS)} blocks)")
 
 
 # --------------------------------------------------------------------------
@@ -52,6 +58,8 @@ def check_supported(cfg: ArchConfig) -> None:
 
 def block_pattern_of(cfg: ArchConfig) -> tuple[str, ...]:
     check_supported(cfg)
+    if cfg.block_pattern:
+        return tuple(cfg.block_pattern)
     return ("attn_global",)
 
 
@@ -61,16 +69,34 @@ def layer_layout(cfg: ArchConfig) -> tuple[tuple[str, ...], int, int]:
     return pat, cfg.n_layers // len(pat), cfg.n_layers % len(pat)
 
 
+def _groups(cfg: ArchConfig):
+    """(name, block kinds, depth) of each stacked layer group: ``scan``
+    holds the whole periods; ``rem_scan`` the layers that do not fill one
+    (recurrentgemma: 26 = 8*3 + 2), stacked to depth 1 as in the
+    reference."""
+    pat, n_per, n_rem = layer_layout(cfg)
+    out = []
+    if n_per > 0:
+        out.append(("scan", pat, n_per))
+    if n_rem:
+        out.append(("rem_scan", pat[:n_rem], 1))
+    return out
+
+
 # --------------------------------------------------------------------------
 # templates
 # --------------------------------------------------------------------------
 
 def block_template(cfg: ArchConfig, kind: str):
-    if kind != "attn_global":
+    if kind not in _KINDS:
         raise NotImplementedError(kind)
     D = cfg.d_model
     norm = lambda: ParamSpec((D,), ("embed",), init="zeros")  # noqa: E731
-    t: dict[str, Any] = {"ln1": norm(), "attn": L.attn_template(cfg)}
+    t: dict[str, Any] = {"ln1": norm()}
+    if kind == "rglru":
+        t["rglru"] = L.rglru_template(cfg)
+    else:
+        t["attn"] = L.attn_template(cfg)
     if cfg.d_ff > 0:
         t["ln2"] = norm()
         t["mlp"] = L.mlp_template(cfg)
@@ -86,16 +112,16 @@ def _stack_specs(tmpl, n):
 
 def model_template(cfg: ArchConfig):
     D, V = cfg.d_model, cfg.vocab
-    pat, n_per, _ = layer_layout(cfg)
     t: dict[str, Any] = {
         "embed": ParamSpec((V, D), ("vocab", "embed"), scale=1.0),
         "final_norm": ParamSpec((D,), ("embed",), init="zeros"),
     }
     if not cfg.tie_embeddings:
         t["lm_head"] = ParamSpec((D, V), ("embed", "vocab"))
-    t["layers"] = {"scan": {
-        f"pos{i}": _stack_specs(block_template(cfg, k), n_per)
-        for i, k in enumerate(pat)}}
+    t["layers"] = {
+        group: {f"pos{i}": _stack_specs(block_template(cfg, k), n)
+                for i, k in enumerate(pattern)}
+        for group, pattern, n in _groups(cfg)}
     return t
 
 
@@ -148,36 +174,51 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 # caches
 # --------------------------------------------------------------------------
 
-def _block_cache(cfg: ArchConfig, n: int, B: int, S: int, device):
-    K, hd = cfg.n_kv_heads, cfg.head_dim
-    return {"k": torch.zeros((n, B, S, K, hd), dtype=cfg.tdtype,
-                             device=device),
-            "v": torch.zeros((n, B, S, K, hd), dtype=cfg.tdtype,
-                             device=device),
+def _block_cache(cfg: ArchConfig, kind: str, n: int, B: int,
+                 cache_len: int, device):
+    """The decode state of ``n`` stacked blocks of ``kind``."""
+    K, hd, dt = cfg.n_kv_heads, cfg.head_dim, cfg.tdtype
+    if kind == "rglru":
+        R = cfg.rglru_dim or cfg.d_model
+        return {"h": torch.zeros((n, B, R), dtype=f32, device=device),
+                "conv": torch.zeros((n, B, cfg.conv_width - 1, R),
+                                    dtype=dt, device=device)}
+    S = cache_len if kind == "attn_global" else min(cfg.window_size,
+                                                    cache_len)
+    return {"k": torch.zeros((n, B, S, K, hd), dtype=dt, device=device),
+            "v": torch.zeros((n, B, S, K, hd), dtype=dt, device=device),
             "pos": torch.full((n, B, S), -1, dtype=torch.int32,
                               device=device)}
 
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device="cuda"):
-    pat, n_per, _ = layer_layout(cfg)
-    return {"scan": {f"pos{i}": _block_cache(cfg, n_per, batch, cache_len,
-                                             device)
-                     for i in range(len(pat))}}
+    return {group: {f"pos{i}": _block_cache(cfg, kind, n, batch, cache_len,
+                                            device)
+                    for i, kind in enumerate(pattern)}
+            for group, pattern, n in _groups(cfg)}
 
 
 # --------------------------------------------------------------------------
 # block application
 # --------------------------------------------------------------------------
 
-def _apply_block(p, cfg, x, positions, *, cache=None, decode=False,
+def _apply_block(p, cfg, kind, x, positions, *, cache=None, decode=False,
                  make_cache=0):
-    """One residual block.  Returns (x, cache): the decode cache updated
-    in place, or the new prefill cache when ``make_cache`` > 0."""
+    """One residual block.  Returns (x, cache): in decode, the attention
+    cache updated in place or the RG-LRU block's new state; in prefill,
+    the new cache when ``make_cache`` > 0."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    if decode:
-        y, cache = L.attn_decode(p["attn"], cfg, h, positions, cache)
+    if kind == "rglru":
+        if decode:
+            y, cache = L.rglru_decode(p["rglru"], cfg, h, cache)
+        else:
+            y, cache = L.rglru_apply(p["rglru"], cfg, h,
+                                     make_cache=bool(make_cache))
+    elif decode:
+        y, cache = L.attn_decode(p["attn"], cfg, h, positions, cache,
+                                 kind=kind)
     else:
-        y, cache = L.attn_apply(p["attn"], cfg, h, positions,
+        y, cache = L.attn_apply(p["attn"], cfg, h, positions, kind=kind,
                                 make_cache=make_cache)
     x = x + y
     if "mlp" in p:
@@ -188,25 +229,29 @@ def _apply_block(p, cfg, x, positions, *, cache=None, decode=False,
 
 def _run_layers(cfg, params_l, x, positions, *, caches=None, decode=False,
                 make_cache=0):
-    """Drive the stacked layer group: a loop over the period index.
+    """Drive the stacked layer groups (``scan``, then ``rem_scan``): a
+    loop over each group's stacked index.
 
-    Decode updates ``caches`` in place; prefill with ``make_cache`` > 0
+    Decode updates ``caches`` in place (an RG-LRU block's new state is
+    copied into its stacked slice); prefill with ``make_cache`` > 0
     writes each layer's cache into a fresh stacked cache.  Returns
     (x, caches or None).
     """
-    pat, n_per, _ = layer_layout(cfg)
-    scan = params_l["scan"]
     if make_cache:
         caches = init_cache(cfg, x.shape[0], make_cache, x.device)
-    for t in range(n_per):
-        for i, _kind in enumerate(pat):
-            p_t = _index(scan[f"pos{i}"], t)
-            c_t = _index(caches["scan"][f"pos{i}"], t) if caches else None
-            x, nc = _apply_block(p_t, cfg, x, positions, cache=c_t,
-                                 decode=decode, make_cache=make_cache)
-            if make_cache:
-                for key, val in nc.items():
-                    c_t[key].copy_(val)
+    for group, pattern, n in _groups(cfg):
+        for t in range(n):
+            for i, kind in enumerate(pattern):
+                p_t = _index(params_l[group][f"pos{i}"], t)
+                c_t = _index(caches[group][f"pos{i}"], t) if caches \
+                    else None
+                x, nc = _apply_block(p_t, cfg, kind, x, positions,
+                                     cache=c_t, decode=decode,
+                                     make_cache=make_cache)
+                if decode or make_cache:
+                    for key, val in nc.items():
+                        if val is not c_t[key]:  # written in place already
+                            c_t[key].copy_(val)
     return x, (caches if (decode or make_cache) else None)
 
 
@@ -265,9 +310,15 @@ def decode_step(cfg: ArchConfig, params, token, pos, caches):
     """One decode step.  token: (B, 1) ids; pos: (B,) positions.
 
     Returns (logits (B, V), caches) with ``caches`` updated in place.
+    A position must have a slot in every global cache; local caches are
+    ring buffers and RG-LRU state has no slots, so they take any
+    position >= 0.
     """
-    slots = caches["scan"]["pos0"]["k"].shape[2]
-    _check_range(pos, slots, "decode position")
+    slots = [caches[g][f"pos{i}"]["k"].shape[2]
+             for g, pattern, _ in _groups(cfg)
+             for i, kind in enumerate(pattern) if kind == "attn_global"]
+    _check_range(pos, min(slots) if slots else 2**31 - 1,
+                 "decode position")
     x = embed_tokens(cfg, params, token)
     x, caches = _run_layers(cfg, params["layers"], x, pos, caches=caches,
                             decode=True)

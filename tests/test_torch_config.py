@@ -35,7 +35,8 @@ def test_config_asdict_matches_reference(arch):
     assert cfg.tdtype == getattr(torch, cfg.dtype)
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "qwen2.5-32b"])
+@pytest.mark.parametrize("arch", ["granite-8b", "qwen2.5-32b",
+                                  "recurrentgemma-2b"])
 def test_param_count_matches_reference(arch):
     assert t_param_count(tcfgs.get_config(arch)) == \
         j_param_count(jcfgs.get_config(arch))

@@ -21,6 +21,9 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain,
 )
+from repro_torch.kernels.rglru_scan import (  # noqa: E402
+    rglru_scan, rglru_scan_plain,
+)
 from repro_torch.models import model as M  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -47,6 +50,7 @@ def _rand(rng, shape, dtype, device):
     (1, 4, 1, 40, 40, 32, True, 16, None),
     (1, 2, 2, 33, 33, 16, True, None, 30.0),
     (1, 2, 2, 16, 80, 64, False, None, None),
+    (1, 10, 1, 100, 100, 256, True, 48, None),  # recurrentgemma hd 256
 ])
 def test_flash_kernel_matches_plain(cuda, B, H, K, Sq, Skv, hd, causal,
                                     window, cap, dtype):
@@ -63,23 +67,39 @@ def test_flash_kernel_matches_plain(cuda, B, H, K, Sq, Skv, hd, causal,
         q, k, v, **kw).float(), **TOL[dtype])
 
 
+def test_flash_kernel_rejects_misaligned_rows(cuda):
+    rng = np.random.default_rng(3)
+    q = _rand(rng, (1, 2, 8, 16), torch.bfloat16, cuda)
+    k = _rand(rng, (1, 2, 8, 20), torch.bfloat16, cuda)[..., 2:18]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, k, k)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,K,G,S,hd,window,cap", [
-    (4, 8, 4, 640, 128, None, None),
-    (2, 2, 1, 40, 16, 16, None),
-    (1, 2, 2, 33, 32, None, 30.0),
+@pytest.mark.parametrize("B,K,G,S,hd,window,cap,ring", [
+    (4, 8, 4, 640, 128, None, None, False),
+    (2, 2, 1, 40, 16, 16, None, False),
+    (1, 2, 2, 33, 32, None, 30.0, False),
+    (2, 1, 10, 96, 256, 96, None, True),  # recurrentgemma: wrapped ring
 ])
 def test_decode_kernel_matches_plain(cuda, B, K, G, S, hd, window, cap,
-                                     dtype):
+                                     ring, dtype):
     rng = np.random.default_rng(S + hd)
     q = _rand(rng, (B, K, G, hd), dtype, cuda)
     k = _rand(rng, (B, K, S, hd), dtype, cuda)
     v = _rand(rng, (B, K, S, hd), dtype, cuda)
-    n_valid = S - 7
     base = torch.arange(S, device=cuda)
-    kv_pos = torch.where(base < n_valid, base, -1).to(torch.int32)
-    kv_pos = kv_pos.expand(B, S).contiguous()
-    q_pos = torch.full((B,), n_valid - 1, dtype=torch.int32, device=cuda)
+    if ring:  # slot i holds the newest position p <= cur with p % S == i
+        cur = S + 7
+        kv_pos = torch.where(base <= cur % S, base + (cur // S) * S,
+                             base + (cur // S - 1) * S)
+        q_pos = torch.full((B,), cur, dtype=torch.int32, device=cuda)
+    else:
+        n_valid = S - 7
+        kv_pos = torch.where(base < n_valid, base, -1)
+        q_pos = torch.full((B,), n_valid - 1, dtype=torch.int32,
+                           device=cuda)
+    kv_pos = kv_pos.to(torch.int32).expand(B, S).contiguous()
     kw = dict(window=window, softcap=cap)
     n0 = decode_attention.launches
     got = decode_attention(q, k, v, q_pos, kv_pos, **kw)
@@ -89,15 +109,39 @@ def test_decode_kernel_matches_plain(cuda, B, K, G, S, hd, window, cap,
         q, k, v, q_pos, kv_pos, **kw).float(), **TOL[dtype])
 
 
-def test_reduced_model_cuda_matches_cpu(cuda):
-    cfg = get_reduced("granite-8b")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,R,with_h0", [
+    (2, 64, 128, False),
+    (1, 40, 130, True),   # ragged channel dim
+    (2, 17, 64, True),    # ragged time dim
+    (4, 300, 2560, True),  # recurrentgemma's width
+])
+def test_rglru_kernel_matches_plain(cuda, B, S, R, with_h0, dtype):
+    rng = np.random.default_rng(S + R)
+    a = torch.sigmoid(_rand(rng, (B, S, R), torch.float32, cuda)).to(dtype)
+    b = _rand(rng, (B, S, R), dtype, cuda)
+    h0 = _rand(rng, (B, R), dtype, cuda) if with_h0 else None
+    n0 = rglru_scan.launches
+    got = rglru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == n0 + 1
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), rglru_scan_plain(
+        a, b, h0).float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("arch,n_dec", [("granite-8b", 5),
+                                        ("recurrentgemma-2b", 20)])
+def test_reduced_model_cuda_matches_cpu(cuda, arch, n_dec):
+    """recurrentgemma decodes past its window of 16, so the ring wraps."""
+    cfg = get_reduced(arch)
     params = M.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
 
     def to(tree):
         return {k: to(v) if isinstance(v, dict) else v.to(cuda)
                 for k, v in tree.items()}
     gparams = to(params)
-    B, T0, n_dec = 2, 8, 5
+    B, T0 = 2, 8
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab, (B, T0 + n_dec)).astype(np.int32))
     lc, cc, _ = M.prefill(cfg, params, toks[:, :T0], cache_len=T0 + n_dec)
@@ -110,3 +154,14 @@ def test_reduced_model_cuda_matches_cpu(cuda):
         lc, cc = M.decode_step(cfg, params, tok, pos, cc)
         lg, cg = M.decode_step(cfg, gparams, tok.to(cuda), pos.to(cuda), cg)
         torch.testing.assert_close(lg.cpu(), lc, rtol=2e-3, atol=2e-3)
+
+    def leaves(tree, prefix=""):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                yield from leaves(tree[k], f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", tree[k]
+    want = dict(leaves(cc))
+    for name, got in leaves(cg):
+        torch.testing.assert_close(got.cpu(), want[name], rtol=2e-3,
+                                   atol=2e-3, msg=lambda m: f"{name}: {m}")

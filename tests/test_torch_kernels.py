@@ -23,6 +23,7 @@ from repro.kernels.decode_attention import (  # noqa: E402
 from repro.kernels.flash_attention import (  # noqa: E402
     flash_attention as j_flash,
 )
+from repro.kernels.rglru_scan import rglru_scan as j_rglru  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -30,7 +31,10 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, split_plan,
 )
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention,
+    flash_attention, rows_aligned,
+)
+from repro_torch.kernels.rglru_scan import (  # noqa: E402
+    rglru_scan, rglru_scan_plain,
 )
 from repro_torch.models import layers as TL  # noqa: E402
 
@@ -63,7 +67,8 @@ def _np(x):
         (1, 4, 1, 40, 40, 32, True, 16, None),        # MQA + window
         (1, 2, 2, 33, 33, 16, True, None, 30.0),      # softcap + ragged
         (1, 2, 2, 16, 80, 16, False, None, None),     # bidir, Sq != Skv
-    ])
+        (1, 10, 1, 40, 40, 256, True, 16, None),      # recurrentgemma:
+    ])                                                # hd 256, G 10, window
 def test_flash_plain_vs_pallas(B, H, K, Sq, Skv, hd, causal, window, cap,
                                dtype):
     rng = np.random.default_rng(B * 1000 + Sq + Skv)
@@ -107,7 +112,8 @@ def _decode_positions(B, S, ring):
         (1, 1, 4, 48, 16, None, None, False),   # MQA, ragged S
         (2, 2, 1, 40, 16, 16, None, True),      # ring buffer + window
         (1, 2, 2, 33, 16, None, 30.0, False),   # softcap
-    ])
+        (1, 1, 10, 40, 256, 16, None, True),    # recurrentgemma: hd 256,
+    ])                                          # G 10, wrapped ring
 def test_decode_plain_vs_pallas(B, K, G, S, hd, window, cap, ring, dtype):
     rng = np.random.default_rng(B * 100 + S)
     jq, tq = _pair(rng, (B, K, G, hd), dtype)
@@ -156,6 +162,36 @@ def test_decode_split_plan(batch_kv, S, want):
     chunk, n_split = split_plan(batch_kv, S)
     assert (chunk, n_split) == want
     assert chunk % 32 == 0 and (n_split - 1) * chunk < S <= n_split * chunk
+
+
+# ---------------------------------------------------------------- rg-lru
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,R,with_h0", [
+    (2, 64, 128, False),
+    (1, 40, 130, True),   # ragged channel dim
+    (2, 17, 64, True),    # ragged time dim
+])
+def test_rglru_plain_vs_pallas(B, S, R, with_h0, dtype):
+    rng = np.random.default_rng(B * 1000 + S + R)
+    # decays in (0, 1) like real RG-LRU coefficients
+    x = rng.standard_normal((B, S, R)).astype(np.float32)
+    a32 = 1.0 / (1.0 + np.exp(-x))
+    jd, td = DTYPES[dtype]
+    ja, ta = jnp.asarray(a32).astype(jd), torch.from_numpy(a32).to(td)
+    jb, tb = _pair(rng, (B, S, R), dtype)
+    jh0, th0 = _pair(rng, (B, R), dtype) if with_h0 else (None, None)
+    got = rglru_scan(ta, tb, th0)
+    assert got.dtype == td and got.shape == (B, S, R)
+    pallas = j_rglru(ja, jb, jh0, block_t=16, block_r=128, interpret=True)
+    oracle = jref.ref_rglru_scan(ja, jb, jh0)
+    np.testing.assert_allclose(_np(got), _np(pallas), **TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(oracle), **TOL[dtype])
+    np.testing.assert_allclose(_np(tref.ref_rglru_scan(ta, tb, th0)),
+                               _np(got), rtol=0, atol=0)
+    if dtype == "float32":  # the model-layout wrappers agree too
+        np.testing.assert_allclose(_np(tops.rglru_op(ta, tb, th0)),
+                                   _np(jops.rglru_op(ja, jb, jh0)),
+                                   **TOL[dtype])
 
 
 # ------------------------------------------------------------ model layout
@@ -233,3 +269,33 @@ def test_no_kernel_for_other_devices():
                          torch.empty((1,), dtype=torch.int32, device="meta"),
                          torch.empty((1, 8), dtype=torch.int32,
                                      device="meta"))
+
+
+def test_cpu_tensors_never_launch_rglru_kernel():
+    rglru_scan.launches = 0
+    rng = np.random.default_rng(12)
+    _, a = _pair(rng, (1, 5, 8), "float32")
+    _, b = _pair(rng, (1, 5, 8), "float32")
+    got = rglru_scan(a, b)
+    rglru_scan(a, b, torch.zeros((1, 8)))
+    tops.rglru_op(a, b)
+    assert rglru_scan.launches == 0
+    assert torch.equal(got, rglru_scan_plain(a, b))
+
+
+def test_rglru_no_kernel_for_other_devices():
+    a = torch.empty((1, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        rglru_scan(a, a)
+    with pytest.raises(ValueError, match="no kernel"):
+        rglru_scan(a, a, torch.empty((1, 8), device="meta"))
+
+
+def test_flash_rows_aligned():
+    """The flash kernel reads k and v rows as 16-byte vectors; its wrapper
+    accepts a view only where every row starts on a 16-byte boundary."""
+    base = torch.empty((2, 3, 40, 16), dtype=torch.float32)
+    assert rows_aligned(base) and rows_aligned(base.transpose(1, 2))
+    assert rows_aligned(base.to(torch.bfloat16)[:, :, 1:])  # 32-byte rows
+    assert not rows_aligned(base[..., 1:])  # pointer 4 bytes in
+    assert not rows_aligned(torch.empty((2, 3, 18))[..., :16])  # 72-byte rows

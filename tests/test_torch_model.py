@@ -25,7 +25,8 @@ from repro_torch.models.convert import (  # noqa: E402
 )
 
 TOL = dict(rtol=2e-3, atol=2e-3)
-ARCHS = ["granite-8b", "qwen2.5-32b"]  # qwen: qkv bias, untied head
+ARCHS = ["granite-8b", "qwen2.5-32b",  # qwen: qkv bias, untied head
+         "recurrentgemma-2b"]  # rglru + attn_local, rem_scan group
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -126,6 +127,109 @@ def test_prefill_decode_matches_forward(pair):
                                         caches)
         np.testing.assert_allclose(_np(logits), full[:, T0 + i], **TOL,
                                    err_msg=f"{arch}: decode step {i}")
+
+
+@pytest.mark.parametrize("T0", [4, 20])  # 20 > window: the rolled ring
+def test_decode_past_local_window_matches_reference(T0):
+    """recurrentgemma's ring-buffer local cache stays right after the
+    decode wraps the window (tests/test_archs.py, run against the port):
+    every decode step's logits against the reference's, and the last
+    against the reference's teacher-forced forward, at its 5e-3."""
+    arch = "recurrentgemma-2b"
+    jcfg, tcfg = j_reduced(arch), t_reduced(arch)
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(1))
+    tparams = from_numpy_tree(jax.tree.map(np.asarray, jparams), "cpu")
+    B = 2
+    total = jcfg.window_size + 12  # force wraparound
+    toks = np.random.default_rng(2).integers(
+        0, jcfg.vocab, (B, total)).astype(np.int32)
+    jh, _, _ = JM.forward(jcfg, jparams, jnp.asarray(toks))
+    full = _np(JM._head(jcfg, jparams, jh))
+
+    _, jc, _ = JM.prefill(jcfg, jparams, jnp.asarray(toks[:, :T0]),
+                          cache_len=total)
+    _, tc, _ = TM.prefill(tcfg, tparams, torch.from_numpy(toks[:, :T0]),
+                          cache_len=total)
+    assert tc["scan"]["pos2"]["k"].shape[2] == jcfg.window_size
+    np.testing.assert_array_equal(_np(tc["scan"]["pos2"]["pos"]),
+                                  np.asarray(jc["scan"]["pos2"]["pos"]))
+    dec = jax.jit(lambda p, t, pos, c: JM.decode_step(jcfg, p, t, pos, c))
+    for i in range(T0, total):
+        pos = np.full((B,), i, np.int32)
+        tok = toks[:, i:i + 1]
+        jl, jc = dec(jparams, jnp.asarray(tok), jnp.asarray(pos), jc)
+        tl, tc = TM.decode_step(tcfg, tparams, torch.from_numpy(tok),
+                                torch.from_numpy(pos), tc)
+        np.testing.assert_allclose(_np(tl), _np(jl), rtol=5e-3, atol=5e-3,
+                                   err_msg=f"decode position {i}")
+    np.testing.assert_allclose(_np(tl), full[:, -1], rtol=5e-3, atol=5e-3)
+    np.testing.assert_array_equal(_np(tc["scan"]["pos2"]["pos"]),
+                                  np.asarray(jc["scan"]["pos2"]["pos"]))
+
+
+def test_rglru_primitives_match_reference():
+    """causal_conv1d (fresh and with a carried state), _rglru_coeffs
+    (softplus as logaddexp) and one rglru_decode step."""
+    rng = np.random.default_rng(11)
+    B, S, R, W = 2, 7, 24, 4
+    x = rng.standard_normal((B, S, R)).astype(np.float32)
+    w = rng.standard_normal((W, R)).astype(np.float32) / W
+    b = rng.standard_normal((R,)).astype(np.float32)
+    st = rng.standard_normal((B, W - 1, R)).astype(np.float32)
+    for state in (None, st):
+        jy, js = JL.causal_conv1d(jnp.asarray(x), jnp.asarray(w),
+                                  jnp.asarray(b), None if state is None
+                                  else jnp.asarray(state))
+        ty, ts = TL.causal_conv1d(torch.from_numpy(x), torch.from_numpy(w),
+                                  torch.from_numpy(b), None if state is None
+                                  else torch.from_numpy(state))
+        np.testing.assert_allclose(_np(ty), _np(jy), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(_np(ts), _np(js), rtol=0, atol=0)
+
+    cfg = t_reduced("recurrentgemma-2b")
+    D = cfg.d_model
+    p = {k: rng.standard_normal(s.shape).astype(np.float32) * 0.3
+         for k, s in TL.rglru_template(cfg.with_(d_model=D)).items()}
+    p["lam"] = np.linspace(-4.0, 30.0, cfg.rglru_dim).astype(np.float32)
+    jp, tp = jax.tree.map(jnp.asarray, p), from_numpy_tree(p, "cpu")
+    u = rng.standard_normal((B, S, cfg.rglru_dim)).astype(np.float32)
+    ja, jg = JL._rglru_coeffs(jp, jnp.asarray(u))
+    ta, tg = TL._rglru_coeffs(tp, torch.from_numpy(u))
+    np.testing.assert_allclose(_np(ta), _np(ja), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(_np(tg), _np(jg), rtol=1e-5, atol=1e-6)
+
+    xd = rng.standard_normal((B, 1, D)).astype(np.float32)
+    cache = {"h": rng.standard_normal((B, cfg.rglru_dim)).astype(np.float32),
+             "conv": rng.standard_normal(
+                 (B, W - 1, cfg.rglru_dim)).astype(np.float32)}
+    jy, jc = JL.rglru_decode(jp, None, jnp.asarray(xd),
+                             jax.tree.map(jnp.asarray, cache))
+    ty, tc = TL.rglru_decode(tp, cfg, torch.from_numpy(xd),
+                             from_numpy_tree(cache, "cpu"))
+    np.testing.assert_allclose(_np(ty), _np(jy), rtol=1e-4, atol=1e-4)
+    for key in ("h", "conv"):
+        np.testing.assert_allclose(_np(tc[key]), _np(jc[key]), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_decode_positions_checked_only_against_global_caches():
+    """A global cache bounds the decode position; recurrentgemma has only
+    ring-buffer local caches and RG-LRU state, so any position >= 0
+    decodes (and a negative one raises)."""
+    cfg = t_reduced("recurrentgemma-2b")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    caches = TM.init_cache(cfg, 1, 4, "cpu")
+    assert caches["scan"]["pos2"]["k"].shape[2] == 4
+    assert set(caches) == {"scan", "rem_scan"}
+    tok = torch.zeros((1, 1), dtype=torch.int32)
+    logits, caches = TM.decode_step(cfg, params, tok,
+                                    torch.tensor([37], dtype=torch.int32),
+                                    caches)
+    assert torch.isfinite(logits).all()
+    assert caches["scan"]["pos2"]["pos"][0, 0].tolist() == [-1, 37, -1, -1]
+    with pytest.raises(IndexError):
+        TM.decode_step(cfg, params, tok,
+                       torch.tensor([-1], dtype=torch.int32), caches)
 
 
 # ------------------------------------------------------------ pinned numerics
@@ -234,7 +338,7 @@ def test_bf16_head_gives_fp32_logits():
 
 @pytest.mark.parametrize("arch", ["gemma2-9b", "granite-moe-1b-a400m",
                                   "whisper-large-v3", "pixtral-12b",
-                                  "recurrentgemma-2b"])
+                                  "xlstm-350m"])
 def test_unported_configs_raise(arch):
     with pytest.raises(NotImplementedError):
         TM.model_template(t_reduced(arch))

@@ -1,5 +1,6 @@
 """PyTorch port: ServingEngine against ``repro.serving.ServingEngine``
-on reduced dense configs, on the CPU (device="cpu")."""
+on reduced configs (dense granite-8b and hybrid recurrentgemma-2b), on
+the CPU (device="cpu")."""
 
 import pytest
 
@@ -42,11 +43,11 @@ def test_lazy_compile_materializes_on_first_use():
     assert not eng.registry["compile.score"].ready
 
 
-@pytest.fixture(scope="module")
-def engines():
+@pytest.fixture(scope="module", params=["granite-8b", "recurrentgemma-2b"])
+def engines(request):
     """The reference engine and the port's, on the reference's weights
     (carried over by swapping the port's weights.core builder)."""
-    jcfg, tcfg = j_reduced("granite-8b"), t_reduced("granite-8b")
+    jcfg, tcfg = j_reduced(request.param), t_reduced(request.param)
     kw = dict(batch_size=2, prefill_len=8, max_len=24)
     jeng = JEngine(jcfg, **kw)
     jeng.cold_start()
