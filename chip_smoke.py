@@ -9,12 +9,17 @@ Phases, each raising on failure (the script then exits non-zero):
               (nvidia-smi), the torch and nvcc versions;
 2. build   -- build every kernel under src/repro_torch/kernels/csrc with
               nvcc (one process per source, in parallel), timed as set-up;
+              print registers and spills per instance, and each flash
+              instance's HGMMA (wgmma) and UTMALDG (TMA load) counts from
+              cuobjdump -sass; fail unless the bf16 instances at head_dim
+              128 and 256 have both (they run on the tensor cores);
 3. kernels -- hold each kernel against its plain PyTorch version on the
               card, at the shapes of both main paths -- granite-8b
               (batch 4, prefill 512, cache 640, hd 128, G 4) and
               recurrentgemma-2b (batch 4, prefill 2048, window 2048,
               hd 256, G 10 over one kv head; RG-LRU (4, 2048, 2560)) --
-              and at small windowed / softcapped / ragged / ring-buffer
+              and at small windowed / softcapped / ragged (S 130, 200
+              against 64- and 128-key tiles) / bidirectional / ring-buffer
               shapes, in bf16 (tolerance 3e-2) and fp32 (2e-5); time
               kernel, plain version and one PyTorch library call where
               one computes the same function (scaled_dot_product_
@@ -134,10 +139,81 @@ def phase_build():
             if "Function properties for" in line:
                 fn = _demangle(line.split("Function properties for")[1]
                                .strip())
-            elif "registers" in line or "spill" in line:
+            elif any(w in line for w in ("registers", "spill", "warning",
+                                         "Performance Loss")):
                 log(f"[build] {name}: {fn}: {line.strip()}")
     log(f"[build] {len(logs)} sources compiled in {dt:.3f} s "
         f"(into {_build.build_dir()})")
+    check_tensor_cores(_build.build_dir() / "libflash_attention.so")
+
+
+# the flash instances that must run on the tensor cores: bf16 at these
+# head dims (flash_fwd_wgmma<HD>)
+TC_FLASH_HEAD_DIMS = (128, 256)
+
+
+def _cuobjdump():
+    """cuobjdump beside nvcc, else the one Triton ships."""
+    import importlib.util
+
+    from repro_torch.kernels import _build
+    beside = Path(_build.nvcc()).parent / "cuobjdump"
+    if beside.exists():
+        return str(beside)
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        shipped = (Path(spec.origin).parent / "backends" / "nvidia" / "bin"
+                   / "cuobjdump")
+        if shipped.exists():
+            return str(shipped)
+    raise RuntimeError("cuobjdump not found (beside nvcc or in Triton)")
+
+
+def sass_counts(lib):
+    """{kernel symbol: {"HGMMA": n, "UTMALDG": n, "max_reg": i}} from the
+    library's SASS; max_reg is the highest register index used, which
+    past a setmaxnreg may exceed the entry count that -Xptxas -v prints."""
+    import re
+    sass = subprocess.run([_cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"HGMMA": 0, "UTMALDG": 0, "max_reg": -1}
+        elif fn is not None:
+            n = counts[fn]
+            for op in ("HGMMA", "UTMALDG"):
+                if re.search(rf"\b{op}\b", line):
+                    n[op] += 1
+            regs = [int(r) for r in re.findall(r"\bR(\d+)\b",
+                                               line.split(";")[0])]
+            n["max_reg"] = max([n["max_reg"], *regs])
+    return counts
+
+
+def check_tensor_cores(lib):
+    """Print each flash instance's HGMMA (wgmma) and UTMALDG (TMA load)
+    counts; fail unless the bf16 instances at TC_FLASH_HEAD_DIMS have
+    both."""
+    import re
+    counts = sass_counts(lib)
+    found = set()
+    for sym, n in sorted(counts.items()):
+        log(f"[build] flash_attention SASS: {_demangle(sym)}: "
+            f"HGMMA {n['HGMMA']}, UTMALDG {n['UTMALDG']}, highest "
+            f"register R{n['max_reg']}")
+        m = re.search(r"flash_fwd_wgmmaILi(\d+)E", sym)
+        if m and n["HGMMA"] > 0 and n["UTMALDG"] > 0:
+            found.add(int(m.group(1)))
+    missing = [hd for hd in TC_FLASH_HEAD_DIMS if hd not in found]
+    if missing:
+        raise RuntimeError(f"flash_attention: the bf16 instances at head_dim "
+                           f"{missing} have no HGMMA or no UTMALDG in their "
+                           "SASS: they do not run on the tensor cores")
+    log(f"[build] flash_attention: bf16 at head_dim {TC_FLASH_HEAD_DIMS} "
+        "runs wgmma (HGMMA) on TMA loads (UTMALDG)")
 
 
 def _demangle(sym):
@@ -660,7 +736,11 @@ def main():
                 (1, 4, 1, 40, 40, 32, True, 16, None, "MQA+window"),
                 (1, 2, 2, 33, 33, 16, True, None, 30.0, "softcap+ragged"),
                 (1, 4, 2, 100, 100, 64, True, None, None, "ragged GQA"),
-                (1, 2, 2, 16, 80, 16, False, None, None, "bidir Sq!=Skv")]),
+                (1, 2, 2, 16, 80, 16, False, None, None, "bidir Sq!=Skv"),
+                (1, 4, 2, 130, 130, 128, True, None, None, "hd 128 S 130"),
+                (1, 4, 2, 200, 200, 128, True, None, None, "hd 128 S 200"),
+                (1, 4, 2, 16, 200, 128, False, None, None,
+                 "hd 128 bidir Sq 16 Skv 200")]),
             decode_cases(gen, "granite-8b", "partly filled", [
                 (2, 2, 1, 40, 16, 16, None, "ring+window"),
                 (1, 2, 2, 33, 16, None, 30.0, "softcap"),
@@ -668,7 +748,15 @@ def main():
         "recurrentgemma-2b": [
             flash_cases(gen, "recurrentgemma-2b", [
                 (1, 10, 1, 100, 100, 256, True, 48, None,
-                 "hd 256 G 10 ragged+window")]),
+                 "hd 256 G 10 ragged+window"),
+                (1, 2, 1, 130, 130, 256, True, None, None, "hd 256 S 130"),
+                (1, 2, 1, 200, 200, 256, True, None, None, "hd 256 S 200"),
+                (1, 10, 1, 200, 200, 256, True, 48, None,
+                 "hd 256 G 10 S 200 window 48"),
+                (1, 2, 1, 130, 130, 256, True, None, 50.0,
+                 "hd 256 softcap 50"),
+                (1, 2, 1, 16, 200, 256, False, None, None,
+                 "hd 256 bidir Sq 16 Skv 200")]),
             decode_cases(gen, "recurrentgemma-2b", "wrapped ring", [
                 (2, 1, 10, 96, 256, 96, None, "hd 256 G 10 ring+window"),
                 (1, 1, 10, 33, 256, None, None, "hd 256 G 10 ragged")]),

@@ -7,45 +7,69 @@
 //
 // What bounds it on this card: at prefill shapes (S = 512, hd = 128;
 // S = 2048, hd = 256) the two products do ~hd/2 operations per byte of
-// q, k, v and o or more, far above the H100's ~295 op/byte balance
-// point, so the bound is arithmetic.
-// This first version computes in fp32 on the CUDA cores (67 TFLOP/s
-// peak), not on the tensor cores (989 TFLOP/s bf16): wgmma, TMA and warp
-// specialisation are later work.  What the design does about it: every
-// q row stays in shared memory for the whole kv loop, each k/v tile is
-// loaded once per 64 query rows, and the inner products read shared
-// memory as float4 so each lane does four FMAs per load.
+// q, k, v and o or more.  At hd 256 that is above the H100's ~295 op/byte
+// balance point (the bound is the tensor cores' 989 TFLOP/s); at granite's
+// hd 128 and S 512 the bytes bound it.  Either way the products must run
+// on the tensor cores, as the reference runs them on the TPU's matrix
+// unit with fp32 accumulation.
 //
-// Design.  The TPU grid (b, h, q_block, kv_block) runs its kv axis in
-// order and carries acc/m/l in VMEM; here one block owns (b, h, BQ query
-// rows) and loops over kv tiles of 32 keys itself, stopping at the
-// causal bound and starting at the window bound (the Pallas skip test).
-// Warp w owns query rows [RPW w, RPW w + RPW); lane j owns key j of the
-// tile for the scores and, for the p.v product, output dims [4j, 4j + 4)
-// of every 128-dim chunk of the head.  The running max is warp-uniform
-// (one shuffle reduction per row and tile); the denominator is summed
-// per lane and reduced once at the end.
+// Two kernels, chosen by (dtype, hd) in flash_attention_fwd:
 //
-// Rows per warp and warps per block follow the head dim so that each
-// lane keeps 64 fp32 accumulators and each k/v tile still serves 64
-// query rows: hd <= 128 takes 4 warps of 16 rows (4 dims a lane); hd =
-// 256 takes 8 warps of 8 rows (8 dims a lane, two float4 columns 128
-// dims apart so the warp's shared-memory reads stay conflict-free) and
-// ~140 KB of shared memory, one block an SM.
+// flash_fwd_wgmma, bf16 at hd 64, 128 and 256 (both main paths).  One
+// block owns 128 query rows of one (b, h) and runs three warpgroups:
+// warpgroup 2 is the producer, one thread of which loads the q tile once
+// and then each k/v tile (64 keys at hd 256, 128 below) with TMA into a
+// two-stage ring of shared memory, completed on full/empty mbarrier
+// pairs; warpgroups 0 and 1 each own 64 query rows and compute.  For
+// every tile a consumer runs S = q k^T with wgmma from shared memory
+// (both operands K-major), the online softmax on the accumulator
+// fragment in registers (a thread holds two rows; row max and sum over
+// the 4 lanes of a quad; exp2 with scale * log2(e) folded in; masks
+// only on tiles that straddle the causal diagonal, the window's edge or
+// Skv), then O += P v with P as the register A operand (the S
+// fragment, packed to bf16, is the A fragment) and v MN-major (the
+// transpose bit).  setmaxnreg gives the consumers 240 registers and the
+// producer 24; the role index is a shuffle (warp-uniform to ptxas), and
+// only the producer's waits carry the 4 s trap against a lost transfer:
+// with a trap in the consumers' code ptxas held them to the kernel's
+// entry count (168) and spilled the hd 256 accumulators.  The producer
+// ends by waiting for the ring to drain, so a consumer stuck on a stage
+// still trips its trap.  The head is loaded as 64-column boxes (the
+// 128-byte swizzle's width), one descriptor chunk each.  q, k and v are
+// read in place through 4-D tensor maps (hd, S, heads, B) built on the
+// host from the element strides, so the model's (B, S, K, G, hd) views
+// need no copy; their base and strides must be 16-byte multiples (the
+// wrapper checks).  TMA fills rows past Sq or Skv with zeros: keys past Skv are
+// masked to -inf, rows past Sq are not stored.  Blocks walk q tiles
+// from the last, so the longest causal tiles start first.  P is rounded
+// to bf16 before P v (the plain version keeps it fp32).
 //
-// Keys past Skv and query rows past Sq are excluded by bounds checks
-// (no padding copies).  Inputs are read in place through element
-// strides, so the model layout (B, S, K, G, hd) needs no transpose.
-// The k and v tiles are read as 16-byte vectors (4 fp32 or 8 bf16 a
-// load), so their rows must be 16-byte aligned: the wrapper checks it.
-// Filled element by element, the tiles kept the hd = 256 instance
-// waiting on its loads (13.7 ms against 4.3 ms with vector loads and 8
-// warps at recurrentgemma's prefill on an H100, chip_smoke.py).
+// flash_fwd_simt, fp32 at every head dim and bf16 at hd 16 and 32: fp32
+// on the CUDA cores (67 TFLOP/s peak).  fp32 keeps it because TF32
+// tensor cores keep ~3 digits, which the fp32 parity runs (2e-5) do not
+// allow.  One block owns (b, h, BQ query rows) and loops over kv tiles
+// of 32 keys itself, stopping at the causal bound and starting at the
+// window bound (the Pallas skip test).  Warp w owns query rows [RPW w,
+// RPW w + RPW); lane j owns key j of the tile for the scores and, for
+// the p.v product, output dims [4j, 4j + 4) of every 128-dim chunk of
+// the head.  The running max is warp-uniform (one shuffle reduction per
+// row and tile); the denominator is summed per lane and reduced once at
+// the end.  Rows per warp and warps per block follow the head dim so
+// that each lane keeps 64 fp32 accumulators and each k/v tile still
+// serves 64 query rows: hd <= 128 takes 4 warps of 16 rows (4 dims a
+// lane); hd = 256 takes 8 warps of 8 rows (8 dims a lane, two float4
+// columns 128 dims apart so the warp's shared-memory reads stay
+// conflict-free) and ~140 KB of shared memory, one block an SM.  Keys
+// past Skv and query rows past Sq are excluded by bounds checks.  The k
+// and v tiles are read as 16-byte vectors, so their rows must be
+// 16-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -119,7 +143,7 @@ constexpr size_t smem_bytes() {
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(Tile<HD>::NTHREAD)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
+flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int G, int Sq, int Skv,
           int64_t qsb, int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh,
           int64_t kss, int64_t vsb, int64_t vsh, int64_t vss, int64_t osb,
@@ -287,7 +311,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int causal, int window, float softcap, float scale,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
-  auto kern = flash_fwd<T, HD>;
+  auto kern = flash_fwd_simt<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
@@ -301,6 +325,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// fp32: the CUDA-core kernel at every head dim
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         void* o, int B, int H, int K, int Sq, int Skv,
@@ -317,6 +342,322 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                                     window, softcap, scale, stream);
     case 256: return launch<T, 256>(q, k, v, o, B, H, K, Sq, Skv, st, causal,
                                     window, softcap, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ------------------------------------------------- bf16 on the tensor cores
+namespace wg {
+
+using namespace hopper;
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int NTHREAD = 384;  // consumer warpgroups 0 and 1, producer 2
+
+template <int HD> struct Cfg {
+  static constexpr int BQ = 128;                   // query rows a block
+  static constexpr int BKV = HD > 128 ? 64 : 128;  // keys a k/v tile
+  static constexpr int STAGES = 2;
+  static constexpr int NCH = HD / 64;           // 128-byte column chunks
+  static constexpr int Q_CHUNK = BQ * 128;      // bytes of a q chunk
+  static constexpr int KV_CHUNK = BKV * 128;    // bytes of a k or v chunk
+  static constexpr int Q_BYTES = NCH * Q_CHUNK;
+  static constexpr int KV_BYTES = NCH * KV_CHUNK;  // one k (or v) tile
+  // q, STAGES k and v tiles, 8-byte barriers, slack to align to 1024
+  static constexpr int SMEM =
+      Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 2 * STAGES) + 1024;
+  static constexpr int NS = BKV / 2;  // score registers a thread
+  static constexpr int NO = HD / 2;   // output registers a thread
+};
+
+template <int HD>
+__global__ void __launch_bounds__(NTHREAD, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                __nv_bfloat16* __restrict__ o, int64_t osb, int64_t osh,
+                int64_t oss, int G, int Sq, int Skv, int causal, int window,
+                float softcap, float scale) {
+  using C = Cfg<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sK = sQ + C::Q_BYTES;  // stage s at sK + s * KV_BYTES
+  const uint32_t sV = sK + C::STAGES * C::KV_BYTES;
+  const uint32_t q_full = sV + C::STAGES * C::KV_BYTES;
+  const uint32_t full0 = q_full + 8;                  // full[s]
+  const uint32_t empty0 = full0 + 8 * C::STAGES;      // empty[s]
+
+  const int h = blockIdx.x, b = blockIdx.y, kh = h / G;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * C::BQ;  // longest first
+  // kv tiles to visit: the causal bound ends the loop, the window bound
+  // starts it (tiles wholly outside either are skipped, as on the TPU)
+  const int kv_end = causal ? min(Skv, q0 + C::BQ) : Skv;
+  int kv_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0)
+    kv_begin = ((q0 - window + 1) / C::BKV) * C::BKV;
+  const int n_tiles =
+      kv_end > kv_begin ? (kv_end - kv_begin + C::BKV - 1) / C::BKV : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);  // one arrival per consumer warp
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  // warp-uniform in the compiler's view (a shuffle), so that ptxas can
+  // give each role its own register count
+  const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wgi == 2) {
+    // ---- producer: one thread keeps the TMA loads in flight
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < C::NCH; ++c)
+        tma_load_4d(sQ + c * C::Q_CHUNK, &tm_q, q_full, 64 * c, q0, h, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % C::STAGES;
+        const uint32_t round = i / C::STAGES;
+        mbar_wait_or_trap(empty0 + 8 * s, (round & 1) ^ 1);
+        mbar_expect_tx(full0 + 8 * s, 2 * C::KV_BYTES);
+        const int k0 = kv_begin + i * C::BKV;
+#pragma unroll
+        for (int c = 0; c < C::NCH; ++c) {
+          tma_load_4d(sK + s * C::KV_BYTES + c * C::KV_CHUNK, &tm_k,
+                      full0 + 8 * s, 64 * c, k0, kh, b);
+          tma_load_4d(sV + s * C::KV_BYTES + c * C::KV_CHUNK, &tm_v,
+                      full0 + 8 * s, 64 * c, k0, kh, b);
+        }
+      }
+      // outlive the consumers' use of the ring, so that a consumer that
+      // hangs on a stage makes this wait trap
+      for (int i = max(n_tiles - C::STAGES, 0); i < n_tiles; ++i)
+        mbar_wait_or_trap(empty0 + 8 * (i % C::STAGES),
+                          (i / C::STAGES) & 1);
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wgi owns query rows [qa, qa + 64)
+  setmaxnreg_inc<240>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int t = lane % 4;
+  const int qa = q0 + 64 * wgi;
+  const int r0 = qa + 16 * warp + lane / 4, r1 = r0 + 8;  // my two rows
+  const float scale_log2 = scale * LOG2E;
+  const uint32_t q_wg = sQ + wgi * 64 * 128;
+
+  float acc_o[C::NO], acc_s[C::NS];
+#pragma unroll
+  for (int i = 0; i < C::NO; ++i) acc_o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < C::NS; ++i) acc_s[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % C::STAGES;
+    const int k0 = kv_begin + i * C::BKV;
+    mbar_wait(full0 + 8 * s, (i / C::STAGES) & 1);
+    // a tile wholly past these rows' causal bound or before their window
+    // is loaded for the other warpgroup only
+    const bool live = qa < Sq && !(causal && k0 > qa + 63) &&
+                      !(window > 0 && k0 + C::BKV - 1 <= qa - window);
+    if (live) {
+      const uint32_t k_s = sK + s * C::KV_BYTES, v_s = sV + s * C::KV_BYTES;
+      // S = q k^T over the head, 16 dims a wgmma
+      fence_regs(acc_s);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < C::NCH; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss(acc_s,
+                   desc_sw128(q_wg + c * C::Q_CHUNK + 32 * kk, 16, 1024),
+                   desc_sw128(k_s + c * C::KV_CHUNK + 32 * kk, 16, 1024),
+                   (c | kk) != 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc_s);
+
+      // scores in log2 units; masks only where the tile straddles the
+      // causal diagonal, the window's edge or Skv
+      const bool masked = k0 + C::BKV > Skv ||
+                          (causal && k0 + C::BKV - 1 > qa) ||
+                          (window > 0 && k0 <= qa + 63 - window);
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < C::NS; ++j) {
+        float x = acc_s[j];
+        x = softcap > 0.f ? softcap * tanhf(x * scale / softcap) * LOG2E
+                          : x * scale_log2;
+        if (masked) {
+          const int key = k0 + 8 * (j / 4) + 2 * t + (j & 1);
+          const int row = (j & 2) ? r1 : r0;
+          if (key >= Skv)
+            x = -INFINITY;
+          else if ((causal && key > row) ||
+                   (window > 0 && key <= row - window))
+            x = NEG_INF;
+        }
+        acc_s[j] = x;
+        if (j & 2) mx1 = fmaxf(mx1, x);
+        else mx0 = fmaxf(mx0, x);
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float alpha0 = ex2(m0 - mn0), alpha1 = ex2(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+
+      // P as the A operand of P v: 16 keys a wgmma, 4 registers a thread
+      uint32_t pa[C::BKV / 16][4];
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < C::NS; j += 2) {
+        const float mm = (j & 2) ? mn1 : mn0;
+        const float p_lo = ex2(acc_s[j] - mm), p_hi = ex2(acc_s[j + 1] - mm);
+        if (j & 2) ps1 += p_lo + p_hi;
+        else ps0 += p_lo + p_hi;
+        pa[j / 8][(j % 8) / 2] = pack_bf16(p_lo, p_hi);
+      }
+      l0 = l0 * alpha0 + ps0;
+      l1 = l1 * alpha1 + ps1;
+#pragma unroll
+      for (int j = 0; j < C::NO; ++j) acc_o[j] *= (j & 2) ? alpha1 : alpha0;
+
+      // O += P v, v MN-major: 16 keys (two 1024-byte row groups) a wgmma
+      fence_regs(acc_o);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < C::BKV / 16; ++ks)
+        wgmma_rs(acc_o, pa[ks],
+                 desc_sw128(v_s + 2048 * ks, C::KV_CHUNK, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc_o);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+  }
+
+  if (qa >= Sq) return;
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  __nv_bfloat16* ob = o + b * osb + h * osh;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (r0 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + r0 * oss + col) =
+          __floats2bfloat162_rn(acc_o[4 * j] * inv0, acc_o[4 * j + 1] * inv0);
+    if (r1 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + r1 * oss + col) =
+          __floats2bfloat162_rn(acc_o[4 * j + 2] * inv1,
+                                acc_o[4 * j + 3] * inv1);
+  }
+}
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled from the driver, found at run time (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// 4-D map (hd, S, heads, B) of a bf16 tensor addressed through element
+// strides (s = sequence, h = head, b = batch), boxes of 64 columns by
+// `rows` rows, 128-byte swizzle.  False where TMA cannot take it.
+bool make_map(CUtensorMap* map, const void* base, int hd, int S, int heads,
+              int B, int64_t sb, int64_t sh, int64_t ss, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const int64_t st[3] = {ss * 2, sh * 2, sb * 2};
+  if (reinterpret_cast<uintptr_t>(base) % 16) return false;
+  for (int64_t x : st)
+    if (x <= 0 || x % 16) return false;
+  cuuint64_t dims[4] = {cuuint64_t(hd), cuuint64_t(S), cuuint64_t(heads),
+                        cuuint64_t(B)};
+  cuuint64_t strides[3] = {cuuint64_t(st[0]), cuuint64_t(st[1]),
+                           cuuint64_t(st[2])};
+  cuuint32_t box[4] = {64, cuuint32_t(rows), 1, 1};
+  cuuint32_t estride[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, estride,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int H, int K, int Sq, int Skv, const int64_t* st,
+                   int causal, int window, float softcap, float scale,
+                   cudaStream_t stream) {
+  using C = Cfg<HD>;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, HD, Sq, H, B, st[0], st[1], st[2], C::BQ) ||
+      !make_map(&mk, k, HD, Skv, K, B, st[3], st[4], st[5], C::BKV) ||
+      !make_map(&mv, v, HD, Skv, K, B, st[6], st[7], st[8], C::BKV))
+    return cudaErrorInvalidValue;
+  auto kern = flash_fwd_wgmma<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid(H, B, (Sq + C::BQ - 1) / C::BQ);
+  kern<<<grid, NTHREAD, C::SMEM, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), st[9], st[10], st[11],
+      H / K, Sq, Skv, causal, window, softcap, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+// bf16: the tensor-core kernel at hd 64, 128 and 256, the CUDA-core one
+// at 16 and 32
+cudaError_t dispatch_bf16(int hd, const void* q, const void* k,
+                          const void* v, void* o, int B, int H, int K,
+                          int Sq, int Skv, const int64_t* st, int causal,
+                          int window, float softcap, float scale,
+                          cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  switch (hd) {
+    case 16: return launch<T, 16>(q, k, v, o, B, H, K, Sq, Skv, st, causal,
+                                  window, softcap, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, B, H, K, Sq, Skv, st, causal,
+                                  window, softcap, scale, stream);
+    case 64: return wg::launch<64>(q, k, v, o, B, H, K, Sq, Skv, st, causal,
+                                   window, softcap, scale, stream);
+    case 128: return wg::launch<128>(q, k, v, o, B, H, K, Sq, Skv, st,
+                                     causal, window, softcap, scale, stream);
+    case 256: return wg::launch<256>(q, k, v, o, B, H, K, Sq, Skv, st,
+                                     causal, window, softcap, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -342,9 +683,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     return dispatch_hd<float>(hd, q, k, v, o, B, H, K, Sq, Skv, strides,
                               causal, window, softcap, scale, st);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, H, K, Sq, Skv,
-                                      strides, causal, window, softcap, scale,
-                                      st);
+    return dispatch_bf16(hd, q, k, v, o, B, H, K, Sq, Skv, strides, causal,
+                         window, softcap, scale, st);
   return cudaErrorInvalidValue;
 }
 

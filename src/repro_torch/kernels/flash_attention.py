@@ -6,7 +6,11 @@ the H100 and how it is laid out); ``flash_attention_plain`` computes the
 same function in plain PyTorch, as ``repro.kernels.ref`` does in jnp.
 
 ``flash_attention`` runs the plain version on a CPU tensor and launches
-the kernel on a CUDA tensor; there is no other switch and no fallback.
+a kernel on a CUDA tensor; there is no other switch and no fallback.
+Which of the source's two kernels a launch takes follows from (dtype,
+head_dim) alone (``instance``): bf16 at head_dim 64, 128 and 256 runs
+``flash_fwd_wgmma`` (tensor cores, TMA); fp32 at every head_dim and bf16
+at 16 and 32 stay on ``flash_fwd_simt`` (fp32 on the CUDA cores).
 ``flash_attention.launches`` counts kernel launches.
 """
 
@@ -20,7 +24,15 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def instance(dtype, hd) -> str:
+    """The kernel a CUDA launch takes: ``"wgmma"`` (bf16 at head_dim 64,
+    128, 256) or ``"simt"`` (every other supported case)."""
+    return ("wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+            else "simt")
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None,
@@ -56,8 +68,9 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
     Returns (B, H, Sq, hd) in q.dtype.  On CUDA the inputs may be any
     strided views whose last dim is contiguous (the model passes its
     (B, S, K, G, hd) activations transposed, not copied), with k's and
-    v's rows 16-byte aligned (the kernel loads them as vectors); the
-    output takes q's strides.
+    v's rows 16-byte aligned (both kernels load them as 16-byte vectors
+    or TMA boxes), and q's too where ``instance`` is ``"wgmma"`` (TMA
+    loads q as well); the output takes q's strides.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -66,14 +79,15 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
     _, K, Skv, _ = k.shape
     _check(q, k, v, H, K, hd)
     o = torch.empty_like(q)
-    strides = (ctypes.c_int64 * 12)(*(
-        t.stride(i) for t in (q, k, v, o) for i in range(3)))
+    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
+                                    *v.stride()[:3], *o.stride()[:3])
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_fwd
-    fn.argtypes = [_build.P] * 4 + [_build.I32] * 7 + [
-        ctypes.POINTER(ctypes.c_int64), _build.I32, _build.I32, _build.F32,
-        _build.F32, _build.I32, _build.P]
-    fn.restype = _build.I32
+    if fn.argtypes is None:  # first call on this library
+        fn.argtypes = [_build.P] * 4 + [_build.I32] * 7 + [
+            ctypes.POINTER(ctypes.c_int64), _build.I32, _build.I32,
+            _build.F32, _build.F32, _build.I32, _build.P]
+        fn.restype = _build.I32
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              DTYPES[q.dtype], hd, B, H, K, Sq, Skv, strides, int(causal),
              int(window or 0), float(softcap or 0.0), hd ** -0.5,
@@ -104,10 +118,21 @@ def _check(q, k, v, H, K, hd):
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: head_dim must be contiguous")
-    if not (rows_aligned(k) and rows_aligned(v)):
-        raise ValueError("flash_attention: k and v rows must start on "
-                         "16-byte boundaries (the kernel reads them as "
-                         "16-byte vectors)")
+    check_rows_aligned(q, k, v)
+
+
+def check_rows_aligned(q, k, v):
+    """Raise ValueError unless the rows the chosen kernel loads in
+    16-byte units start on 16-byte boundaries: k's and v's, and q's
+    where the instance is ``"wgmma"``."""
+    kind = instance(q.dtype, q.shape[-1])
+    names = {"q": q, "k": k, "v": v} if kind == "wgmma" else {"k": k,
+                                                              "v": v}
+    bad = [n for n, t in names.items() if not rows_aligned(t)]
+    if bad:
+        raise ValueError(f"flash_attention: rows of {', '.join(bad)} must "
+                         f"start on 16-byte boundaries (the {kind} kernel "
+                         f"loads {', '.join(names)} in 16-byte units)")
 
 
 def rows_aligned(t) -> bool:

@@ -24,19 +24,34 @@ def attention_op(q, k, v, *, causal=True, window=None, softcap=None,
 
     The flash kernel takes positions as indices from 0; ``positions``
     (B, S), when given, must be exactly that (prefill from position 0),
-    else ValueError.
+    else ValueError (on a CUDA tensor: a device-side assert, see
+    ``_check_positions``).
     """
     B, S, K, G, hd = q.shape
     if positions is not None:
-        want = torch.arange(S, device=positions.device)
-        if positions.shape != (B, S) or not torch.equal(
-                positions, want.expand(B, S).to(positions.dtype)):
-            raise ValueError("attention_op: the flash kernel needs "
-                             "positions 0..S-1 (prefill from position 0)")
+        _check_positions(positions, B, S)
     qh = q.reshape(B, S, K * G, hd).transpose(1, 2)
     o = flash_attention(qh, k.transpose(1, 2), v.transpose(1, 2),
                         causal=causal, window=window, softcap=softcap)
     return o.transpose(1, 2).reshape(B, S, K, G, hd)
+
+
+def _check_positions(positions, B, S):
+    """positions must be 0..S-1 in every row.  A CPU tensor is compared
+    on the host (ValueError); on the card the comparison stays there
+    (``torch._assert_async``), so a prefill adds no host sync per
+    attention layer and wrong positions still fail loudly, at the next
+    sync, as a device-side assert."""
+    msg = ("attention_op: the flash kernel needs positions 0..S-1 "
+           "(prefill from position 0)")
+    if positions.shape != (B, S):
+        raise ValueError(msg)
+    want = torch.arange(S, device=positions.device, dtype=positions.dtype)
+    if positions.device.type == "cpu":
+        if not torch.equal(positions, want.expand(B, S)):
+            raise ValueError(msg)
+    else:
+        torch._assert_async((positions == want).all(), msg)
 
 
 def decode_attention_op(q, k, v, q_pos, kv_pos, *, window=None,

@@ -45,19 +45,38 @@ def _rand(rng, shape, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,K,Sq,Skv,hd,causal,window,cap", [
-    (2, 8, 2, 130, 130, 128, True, None, None),
-    (1, 4, 1, 40, 40, 32, True, 16, None),
-    (1, 2, 2, 33, 33, 16, True, None, 30.0),
-    (1, 2, 2, 16, 80, 64, False, None, None),
-    (1, 10, 1, 100, 100, 256, True, 48, None),  # recurrentgemma hd 256
+@pytest.mark.parametrize("B,H,K,Sq,Skv,hd,causal,window,cap,layout", [
+    (2, 8, 2, 130, 130, 128, True, None, None, "bhsd"),
+    (1, 4, 1, 40, 40, 32, True, 16, None, "bhsd"),
+    (1, 2, 2, 33, 33, 16, True, None, 30.0, "bhsd"),
+    (1, 2, 2, 16, 80, 64, False, None, None, "bhsd"),
+    (1, 10, 1, 100, 100, 256, True, 48, None, "bhsd"),  # recurrentgemma
+    # bf16 here runs the wgmma kernel: ragged against its 64-key (hd 256)
+    # and 128-key (hd 128) tiles, a window straddling tiles, gemma2's
+    # softcap, bidirectional Sq != Skv, and the model's strided views
+    (1, 4, 2, 200, 200, 128, True, None, None, "bhsd"),
+    (1, 2, 1, 130, 130, 256, True, None, None, "bhsd"),
+    (1, 2, 1, 200, 200, 256, True, None, None, "bhsd"),
+    (1, 10, 1, 200, 200, 256, True, 48, None, "bhsd"),
+    (1, 2, 1, 130, 130, 256, True, None, 50.0, "bhsd"),
+    (1, 4, 2, 16, 200, 128, False, None, None, "bhsd"),
+    (1, 2, 1, 16, 200, 256, False, None, None, "bhsd"),
+    (2, 8, 2, 200, 200, 128, True, None, None, "model"),
+    (2, 10, 1, 130, 130, 256, True, 48, None, "model"),
 ])
 def test_flash_kernel_matches_plain(cuda, B, H, K, Sq, Skv, hd, causal,
-                                    window, cap, dtype):
+                                    window, cap, layout, dtype):
     rng = np.random.default_rng(Sq + hd)
-    q = _rand(rng, (B, H, Sq, hd), dtype, cuda)
-    k = _rand(rng, (B, K, Skv, hd), dtype, cuda)
-    v = _rand(rng, (B, K, Skv, hd), dtype, cuda)
+    if layout == "model":  # (B, S, K, G, hd) activations, transposed views
+        assert Sq == Skv
+        q = _rand(rng, (B, Sq, K, H // K, hd), dtype, cuda).reshape(
+            B, Sq, H, hd).transpose(1, 2)
+        k = _rand(rng, (B, Skv, K, hd), dtype, cuda).transpose(1, 2)
+        v = _rand(rng, (B, Skv, K, hd), dtype, cuda).transpose(1, 2)
+    else:
+        q = _rand(rng, (B, H, Sq, hd), dtype, cuda)
+        k = _rand(rng, (B, K, Skv, hd), dtype, cuda)
+        v = _rand(rng, (B, K, Skv, hd), dtype, cuda)
     kw = dict(causal=causal, window=window, softcap=cap)
     n0 = flash_attention.launches
     got = flash_attention(q, k, v, **kw)
@@ -67,12 +86,18 @@ def test_flash_kernel_matches_plain(cuda, B, H, K, Sq, Skv, hd, causal,
         q, k, v, **kw).float(), **TOL[dtype])
 
 
-def test_flash_kernel_rejects_misaligned_rows(cuda):
+@pytest.mark.parametrize("which,hd", [("k", 16), ("q", 128)])
+def test_flash_kernel_rejects_misaligned_rows(cuda, which, hd):
+    """k and v rows must be 16-byte aligned for both kernels; q rows too
+    for the wgmma kernel (bf16 at hd 128), which loads q with TMA."""
     rng = np.random.default_rng(3)
-    q = _rand(rng, (1, 2, 8, 16), torch.bfloat16, cuda)
-    k = _rand(rng, (1, 2, 8, 20), torch.bfloat16, cuda)[..., 2:18]
+    good = _rand(rng, (1, 2, 8, hd), torch.bfloat16, cuda)
+    bad = _rand(rng, (1, 2, 8, hd + 4), torch.bfloat16, cuda)[..., 2:hd + 2]
+    q, k = (good, bad) if which == "k" else (bad, good)
+    n0 = flash_attention.launches
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention(q, k, k)
+    assert flash_attention.launches == n0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -31,7 +31,10 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, split_plan,
 )
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, rows_aligned,
+    check_rows_aligned, flash_attention, rows_aligned,
+)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    instance as flash_instance,
 )
 from repro_torch.kernels.rglru_scan import (  # noqa: E402
     rglru_scan, rglru_scan_plain,
@@ -289,6 +292,56 @@ def test_rglru_no_kernel_for_other_devices():
         rglru_scan(a, a)
     with pytest.raises(ValueError, match="no kernel"):
         rglru_scan(a, a, torch.empty((1, 8), device="meta"))
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"),
+    (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 256, "simt"),
+])
+def test_flash_instance_by_dtype_and_head_dim(dtype, hd, want):
+    """bf16 at head_dim 64/128/256 runs on the tensor cores; fp32 (whose
+    parity runs need more than TF32's digits) and the small bf16 heads
+    stay on the CUDA-core kernel."""
+    assert flash_instance(dtype, hd) == want
+
+
+@pytest.mark.parametrize("dtype,hd,misaligned,raises", [
+    (torch.bfloat16, 128, "q", True),    # TMA loads q: must be aligned
+    (torch.bfloat16, 256, "q", True),
+    (torch.bfloat16, 64, "q", True),
+    (torch.bfloat16, 32, "q", False),    # the CUDA-core kernel reads q
+    (torch.float32, 128, "q", False),    # element by element
+    (torch.bfloat16, 128, "k", True),
+    (torch.bfloat16, 128, "v", True),
+    (torch.float32, 128, "v", True),
+    (torch.bfloat16, 128, None, False),
+])
+def test_flash_alignment_checked_for_instance(dtype, hd, misaligned,
+                                              raises):
+    def rows(name):
+        base = torch.zeros((1, 2, 8, hd + 8), dtype=dtype)
+        return base[..., 1:hd + 1] if name == misaligned else base[..., :hd]
+    q, k, v = rows("q"), rows("k"), rows("v")
+    if raises:
+        with pytest.raises(ValueError, match=f"rows of {misaligned} "):
+            check_rows_aligned(q, k, v)
+    else:
+        check_rows_aligned(q, k, v)
+
+
+def test_attention_op_positions_shape_checked():
+    rng = np.random.default_rng(5)
+    _, q = _pair(rng, (2, 8, 1, 2, 16), "float32")
+    _, k = _pair(rng, (2, 8, 1, 16), "float32")
+    with pytest.raises(ValueError, match="positions 0..S-1"):
+        tops.attention_op(q, k, k, positions=torch.arange(8)[None])
+    got = tops.attention_op(q, k, k, positions=torch.arange(
+        8, dtype=torch.int32).expand(2, 8))
+    assert torch.equal(got, tops.attention_op(q, k, k))
 
 
 def test_flash_rows_aligned():
