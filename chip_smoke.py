@@ -9,10 +9,13 @@ Phases, each raising on failure (the script then exits non-zero):
               (nvidia-smi), the torch and nvcc versions;
 2. build   -- build every kernel under src/repro_torch/kernels/csrc with
               nvcc (one process per source, in parallel), timed as set-up;
-              print registers and spills per instance, and each flash
-              instance's HGMMA (wgmma) and UTMALDG (TMA load) counts from
-              cuobjdump -sass; fail unless the bf16 instances at head_dim
-              128 and 256 have both (they run on the tensor cores);
+              print registers and spills per instance, the dynamic shared
+              memory of the decode ring, and from cuobjdump -sass
+              each flash instance's HGMMA (wgmma) and UTMALDG (TMA load)
+              counts and each decode instance's HMMA (mma.sync) and LDGSTS
+              (cp.async) counts; fail unless the bf16 instances at head_dim
+              128 and 256 of both kernels have theirs (they run on the
+              tensor cores, fed by asynchronous copies);
 3. kernels -- hold each kernel against its plain PyTorch version on the
               card, at the shapes of both main paths -- granite-8b
               (batch 4, prefill 512, cache 640, hd 128, G 4) and
@@ -20,11 +23,13 @@ Phases, each raising on failure (the script then exits non-zero):
               hd 256, G 10 over one kv head; RG-LRU (4, 2048, 2560)) --
               and at small windowed / softcapped / ragged (S 130, 200
               against 64- and 128-key tiles) / bidirectional / ring-buffer
-              shapes, in bf16 (tolerance 3e-2) and fp32 (2e-5); time
-              kernel, plain version and one PyTorch library call where
-              one computes the same function (scaled_dot_product_
-              attention, a yardstick the port never calls; none for the
-              RG-LRU scan);
+              shapes, in bf16 (tolerance 3e-2; decode's 2e-2 relative
+              and 5e-3 absolute, held to its outputs' scale) and fp32
+              (2e-5); time kernel, plain version and one PyTorch
+              library call where one computes the same function
+              (scaled_dot_product_attention, a yardstick the port never
+              calls; none for the RG-LRU scan) with CUDA events (``ms``:
+              includes the wrapper's host path where it is the longer);
 4. parity  -- reduced() granite-8b and recurrentgemma-2b in fp32: the
               CUDA model (kernels) against the CPU model (plain versions)
               on the same params: prefill logits, every cache leaf and
@@ -39,7 +44,11 @@ Phases, each raising on failure (the script then exits non-zero):
               just before each path and read just after;
 6. breakdown -- for information, after each path: prefill and
               decode-step times, and a torch.profiler trace of one
-              request (device busy share, kernel time by kind).
+              request (device busy share, kernel time by kind);
+7. device_ms -- each kernel's device time a call under torch.profiler
+              (``device_ms``) at phase 3's timed shapes, taken last so
+              that no profiler session of it comes before phases 5 and
+              6.
 
 It prints one JSON line with an entry per kernel and configuration
 (``{"kernels": [...]}``) and ends with ``{"ok": true, "device": {...}}``.
@@ -66,6 +75,11 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": dict(rtol=3e-2, atol=3e-2),
        "float32": dict(rtol=2e-5, atol=2e-5)}
+# decode's outputs are averages over many slots, |o| ~ sqrt(e / n_valid)
+# (0.036 at recurrentgemma-2b's 2048 slots), so its bf16 limit is held to
+# the output's scale: a split of the combine read stale or left out
+# moves o by ~0.01
+DECODE_BF16_TOL = dict(rtol=2e-2, atol=5e-3)
 MODEL_TOL = dict(rtol=2e-3, atol=2e-3)
 # the main paths: batch, prompt length, cache length (max_len), new tokens
 PATHS = {"granite-8b": dict(batch=4, prefill=512, cache=640, new=16),
@@ -102,6 +116,30 @@ def time_ms(fn, sets, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, sets, match, iters=20, warmup=3):
+    """Device ms per call of fn(*s), a call launching one kernel whose
+    name holds ``match``: those kernels' summed torch.profiler durations
+    over ``iters`` calls, over the number of them the profiler recorded
+    (after an earlier session in the process it may miss a few; the
+    count is printed then); None if it recorded none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(warmup):
+        fn(*sets[i % len(sets)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    us = [ev.time_range.elapsed_us() for ev in prof.events()
+          if ev.device_type == DeviceType.CUDA and match in ev.name]
+    if len(us) != iters:
+        log(f"[device_ms] the profiler recorded {len(us)} of {iters} "
+            f"{match} kernels")
+    return sum(us) / 1e3 / len(us) if us else None
 
 
 def n_sets(nbytes):
@@ -144,12 +182,24 @@ def phase_build():
                 log(f"[build] {name}: {fn}: {line.strip()}")
     log(f"[build] {len(logs)} sources compiled in {dt:.3f} s "
         f"(into {_build.build_dir()})")
-    check_tensor_cores(_build.build_dir() / "libflash_attention.so")
+    dec = _build.load("decode_attention")
+    for hd in TC_HEAD_DIMS["decode_attention"]:
+        log(f"[build] decode_attention: decode_mma<{hd}> dynamic shared "
+            f"memory {dec.decode_attention_mma_smem(hd)} B")
+    for name in TC_HEAD_DIMS:
+        check_tensor_cores(name)
 
 
-# the flash instances that must run on the tensor cores: bf16 at these
-# head dims (flash_fwd_wgmma<HD>)
-TC_FLASH_HEAD_DIMS = (128, 256)
+# the bf16 instances that must run on the tensor cores, by library: the
+# kernel symbol, the head dims, and the SASS each must hold (all of the
+# first group; at least one of the second)
+TC_HEAD_DIMS = {"flash_attention": (128, 256),
+                "decode_attention": (128, 256)}
+TC_SASS = {"flash_attention": (r"flash_fwd_wgmmaILi(\d+)E", ("HGMMA",),
+                               ("UTMALDG",)),
+           "decode_attention": (r"decode_mmaILi(\d+)E", ("HMMA",),
+                                ("LDGSTS", "UTMALDG"))}
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "UBLKCP")
 
 
 def _cuobjdump():
@@ -170,7 +220,7 @@ def _cuobjdump():
 
 
 def sass_counts(lib):
-    """{kernel symbol: {"HGMMA": n, "UTMALDG": n, "max_reg": i}} from the
+    """{kernel symbol: {op: n for op in SASS_OPS, "max_reg": i}} from the
     library's SASS; max_reg is the highest register index used, which
     past a setmaxnreg may exceed the entry count that -Xptxas -v prints."""
     import re
@@ -181,10 +231,10 @@ def sass_counts(lib):
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = {"HGMMA": 0, "UTMALDG": 0, "max_reg": -1}
+            counts[fn] = {**dict.fromkeys(SASS_OPS, 0), "max_reg": -1}
         elif fn is not None:
             n = counts[fn]
-            for op in ("HGMMA", "UTMALDG"):
+            for op in SASS_OPS:
                 if re.search(rf"\b{op}\b", line):
                     n[op] += 1
             regs = [int(r) for r in re.findall(r"\bR(\d+)\b",
@@ -193,27 +243,33 @@ def sass_counts(lib):
     return counts
 
 
-def check_tensor_cores(lib):
-    """Print each flash instance's HGMMA (wgmma) and UTMALDG (TMA load)
-    counts; fail unless the bf16 instances at TC_FLASH_HEAD_DIMS have
-    both."""
+def check_tensor_cores(name):
+    """Print each instance's tensor-core and asynchronous-copy counts in
+    library ``name``; fail unless its bf16 instances at
+    TC_HEAD_DIMS[name] hold what TC_SASS[name] requires."""
     import re
-    counts = sass_counts(lib)
+    from repro_torch.kernels import _build
+    pattern, need_all, need_one = TC_SASS[name]
+    counts = sass_counts(_build.build_dir() / f"lib{name}.so")
     found = set()
     for sym, n in sorted(counts.items()):
-        log(f"[build] flash_attention SASS: {_demangle(sym)}: "
-            f"HGMMA {n['HGMMA']}, UTMALDG {n['UTMALDG']}, highest "
-            f"register R{n['max_reg']}")
-        m = re.search(r"flash_fwd_wgmmaILi(\d+)E", sym)
-        if m and n["HGMMA"] > 0 and n["UTMALDG"] > 0:
+        ops = ", ".join(f"{op} {n[op]}" for op in SASS_OPS if n[op])
+        log(f"[build] {name} SASS: {_demangle(sym)}: "
+            f"{ops or 'no ' + '/'.join(SASS_OPS)}, highest register "
+            f"R{n['max_reg']}")
+        m = re.search(pattern, sym)
+        if m and all(n[op] for op in need_all) \
+                and any(n[op] for op in need_one):
             found.add(int(m.group(1)))
-    missing = [hd for hd in TC_FLASH_HEAD_DIMS if hd not in found]
+    want = " and ".join([*need_all, " or ".join(need_one)])
+    missing = [hd for hd in TC_HEAD_DIMS[name] if hd not in found]
     if missing:
-        raise RuntimeError(f"flash_attention: the bf16 instances at head_dim "
-                           f"{missing} have no HGMMA or no UTMALDG in their "
-                           "SASS: they do not run on the tensor cores")
-    log(f"[build] flash_attention: bf16 at head_dim {TC_FLASH_HEAD_DIMS} "
-        "runs wgmma (HGMMA) on TMA loads (UTMALDG)")
+        raise RuntimeError(f"{name}: the bf16 instances at head_dim "
+                           f"{missing} lack {want} in their SASS: they do "
+                           "not run on the tensor cores from asynchronous "
+                           "copies")
+    log(f"[build] {name}: bf16 at head_dim {TC_HEAD_DIMS[name]} holds "
+        f"{want}")
 
 
 def _demangle(sym):
@@ -236,10 +292,12 @@ def _rand(gen, shape, dtype):
 def _check(name, got, want, dtype_name, case):
     import torch
     err = (got.float() - want.float()).abs().max().item()
-    torch.testing.assert_close(got.float(), want.float(),
-                               **TOL[dtype_name],
+    tol = DECODE_BF16_TOL if (name, dtype_name) == (
+        "decode_attention", "bfloat16") else TOL[dtype_name]
+    torch.testing.assert_close(got.float(), want.float(), **tol,
                                msg=lambda m: f"{name} {case}: {m}")
-    log(f"[kernels] {name} {dtype_name} {case}: max_abs_err {err:.3e} ok")
+    log(f"[kernels] {name} {dtype_name} {case}: max_abs_err {err:.3e} "
+        f"(rtol {tol['rtol']:g}, atol {tol['atol']:g}) ok")
     return err
 
 
@@ -298,13 +356,18 @@ def flash_cases(gen, arch, small):
     # timing at the main path's shape and type (bf16), cold L2
     dt = torch.bfloat16
     one = 2 * (B * S * H * hd + 2 * B * S * K * hd)
-    sets = []
-    for _ in range(n_sets(one)):
-        q5 = _rand(gen, (B, S, K, G, hd), dt)
-        k4 = _rand(gen, (B, S, K, hd), dt)
-        v4 = _rand(gen, (B, S, K, hd), dt)
-        sets.append((q5.reshape(B, S, H, hd).transpose(1, 2),
-                     k4.transpose(1, 2), v4.transpose(1, 2)))
+
+    def make_sets():
+        sets = []
+        for _ in range(n_sets(one)):
+            q5 = _rand(gen, (B, S, K, G, hd), dt)
+            k4 = _rand(gen, (B, S, K, hd), dt)
+            v4 = _rand(gen, (B, S, K, hd), dt)
+            sets.append((q5.reshape(B, S, H, hd).transpose(1, 2),
+                         k4.transpose(1, 2), v4.transpose(1, 2)))
+        return sets
+
+    sets = make_sets()
     # SDPA has no window; it computes the same function only where the
     # window covers the whole prompt
     if window is not None and window < S:
@@ -325,7 +388,8 @@ def flash_cases(gen, arch, small):
     return _entry("flash_attention", "flash_attention.cu",
                   "src/repro/kernels/flash_attention.py:92", arch, shape,
                   main["bfloat16"], ms, plain_ms, lib_ms, flops, byts,
-                  "bfloat16")
+                  "bfloat16", (make_sets, lambda q, k, v: flash_attention(
+                      q, k, v, causal=True, window=window), "flash_fwd"))
 
 
 def _filled(n, S, B):
@@ -404,12 +468,17 @@ def decode_cases(gen, arch, timed, small):
     dt = torch.bfloat16
     kv, qp = layouts[timed]
     one = 2 * B * S * K * hd * 2
-    sets = []
-    for _ in range(n_sets(one)):
-        q = _rand(gen, (B, 1, K, G, hd), dt)[:, 0]
-        kc = _rand(gen, (B, S, K, hd), dt)
-        vc = _rand(gen, (B, S, K, hd), dt)
-        sets.append((q, kc.transpose(1, 2), vc.transpose(1, 2)))
+
+    def make_sets():
+        sets = []
+        for _ in range(n_sets(one)):
+            q = _rand(gen, (B, 1, K, G, hd), dt)[:, 0]
+            kc = _rand(gen, (B, S, K, hd), dt)
+            vc = _rand(gen, (B, S, K, hd), dt)
+            sets.append((q, kc.transpose(1, 2), vc.transpose(1, 2)))
+        return sets
+
+    sets = make_sets()
     mask = (kv >= 0) & (kv <= qp[:, None])  # (B, S)
     if window is not None:
         mask &= kv > qp[:, None] - window
@@ -431,7 +500,9 @@ def decode_cases(gen, arch, timed, small):
     return _entry("decode_attention", "decode_attention.cu",
                   "src/repro/kernels/decode_attention.py:70", arch,
                   f"{shape} {timed}", main["bfloat16"], ms, plain_ms,
-                  lib_ms, flops, byts, "bfloat16")
+                  lib_ms, flops, byts, "bfloat16",
+                  (make_sets, lambda q, k, v: decode_attention(
+                      q, k, v, qp, kv, window=window), "decode_"))
 
 
 def rglru_cases(gen, arch):
@@ -448,7 +519,10 @@ def rglru_cases(gen, arch):
     for dt, dn in _dtypes():
         cases = [(B, S, R, False, shape), (2, 64, 128, False, "B=2 S=64"),
                  (1, 40, 130, True, "ragged R=130, h0"),
-                 (2, 17, 64, True, "ragged S=17, h0")]
+                 (2, 17, 64, True, "ragged S=17, h0"),
+                 (2, 1, 64, True, "S=1, h0"),
+                 (1, 37, 2560, False, "S=37 (not a multiple of 32 steps)"),
+                 (2, 50, 33, True, "R=33 (a part of a 64-channel block), h0")]
         for b, s, r, with_h0, what in cases:
             # decays in (0, 1) like real RG-LRU coefficients
             a = torch.sigmoid(_rand(gen, (b, s, r), torch.float32)).to(dt)
@@ -463,12 +537,23 @@ def rglru_cases(gen, arch):
 
     dt = torch.float32
     one = 3 * B * S * R * 4
-    sets = [(torch.sigmoid(_rand(gen, (B, S, R), dt)), _rand(gen, (B, S, R),
-                                                             dt))
-            for _ in range(n_sets(one))]
+
+    def make_sets():
+        return [(torch.sigmoid(_rand(gen, (B, S, R), dt)),
+                 _rand(gen, (B, S, R), dt)) for _ in range(n_sets(one))]
+
+    sets = make_sets()
     n0 = rglru_scan.launches
     ms = time_ms(rglru_scan, sets)
     plain_ms = time_ms(rglru_scan_plain, sets, iters=5, warmup=1)
+    # a yardstick of the rate a plain stream over the same bytes reaches
+    # (a and b read once, one output written): not the same function
+    outs = [torch.empty_like(a) for a, _ in sets]
+    k = iter(range(1 << 30))
+    stream_ms = time_ms(lambda a, b: torch.mul(
+        a, b, out=outs[next(k) % len(outs)]), sets)
+    log(f"[kernels] rglru_scan {arch} yardstick: torch.mul over the same "
+        f"bytes {stream_ms:.4f} ms")
     rglru_scan.launches = n0
     # one multiply-add per element; a and b read once, h written once
     flops = 2 * B * S * R
@@ -476,20 +561,23 @@ def rglru_cases(gen, arch):
     return _entry("rglru_scan", "rglru_scan.cu",
                   "src/repro/kernels/rglru_scan.py:45", arch, shape,
                   main["float32"], ms, plain_ms, None, flops, byts,
-                  "float32")
+                  "float32", (make_sets, rglru_scan, "rglru_"))
 
 
 def _entry(name, src, replaces, arch, shape, err, ms, plain_ms, lib_ms,
-           flops, byts, dtype_name):
+           flops, byts, dtype_name, device_timing):
+    """The kernel's summary entry; ``device_timing`` is (make_sets, fn,
+    kernel name match) for phase 7, which fills ``device_ms``."""
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     t_bytes = byts / PEAK_BYTES_S * 1e3
     e = {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{src}",
          "replaces": replaces, "launches": 0, "max_abs_err": err,
-         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+         "ms": ms, "device_ms": None, "plain_ms": plain_ms,
+         "bound_ms": max(t_ops, t_bytes),
          "bound_by": "operations" if t_ops > t_bytes else "bytes",
          "library_ms": lib_ms, "path": arch,
-         "shape": f"{shape} {dtype_name}"}
+         "shape": f"{shape} {dtype_name}", "_device_timing": device_timing}
     lib = "none (no single PyTorch call computes it)" if lib_ms is None \
         else f"{lib_ms:.4f} ms"
     log(f"[kernels] {name} {arch} {dtype_name} timing: kernel {ms:.4f} ms, "
@@ -497,6 +585,24 @@ def _entry(name, src, replaces, arch, shape, err, ms, plain_ms, lib_ms,
         f"{e['bound_ms']:.4f} ms ({e['bound_by']}: {flops:.4g} flop, "
         f"{byts:.4g} B)")
     return e
+
+
+# --------------------------------------------------------------- phase 7
+def phase_device_time(entries):
+    """Each kernel's device time a call under torch.profiler, on fresh
+    inputs of its timed shape; run after the serving phases, so that no
+    profiler session precedes their host-clock timings."""
+    counters = _kernel_counters()
+    for e in entries:
+        make_sets, fn, match = e.pop("_device_timing")
+        counter = counters[e["name"]]
+        n0 = counter.launches
+        e["device_ms"] = device_ms(fn, make_sets(), match)
+        counter.launches = n0
+        dev = "not measured" if e["device_ms"] is None \
+            else f"{e['device_ms']:.4f} ms"
+        log(f"[device_ms] {e['name']} {e['path']}: device {dev} a call "
+            f"(events: {e['ms']:.4f} ms)")
 
 
 # --------------------------------------------------------------- phase 4
@@ -702,7 +808,7 @@ def phase_breakdown(eng):
         name = ev.name.lower()
         kind = ("flash_attention" if "flash_fwd" in name else
                 "decode_attention" if "decode_" in name else
-                "rglru_scan" if "rglru_fwd" in name else
+                "rglru_scan" if "rglru_" in name else
                 "matmul" if any(k in name for k in (
                     "gemm", "nvjet", "xmma", "cutlass", "gemv")) else
                 "other")
@@ -744,7 +850,11 @@ def main():
             decode_cases(gen, "granite-8b", "partly filled", [
                 (2, 2, 1, 40, 16, 16, None, "ring+window"),
                 (1, 2, 2, 33, 16, None, 30.0, "softcap"),
-                (1, 1, 4, 48, 16, None, None, "MQA ragged")])],
+                (1, 1, 4, 48, 16, None, None, "MQA ragged"),
+                (1, 2, 4, 20, 128, None, None, "hd 128 S 20 (one split)"),
+                (1, 1, 16, 200, 128, None, None, "hd 128 G 16 S 200"),
+                (2, 2, 1, 150, 64, 40, 30.0,
+                 "hd 64 G 1 ring+window+softcap")])],
         "recurrentgemma-2b": [
             flash_cases(gen, "recurrentgemma-2b", [
                 (1, 10, 1, 100, 100, 256, True, 48, None,
@@ -770,6 +880,7 @@ def main():
         del eng  # free this path's weights before the next path's
         gc.collect()
         torch.cuda.empty_cache()
+    phase_device_time([e for es in kernels.values() for e in es])
     print(smi)
     print(json.dumps({"kernels": [e for es in kernels.values()
                                   for e in es]}))

@@ -4,32 +4,58 @@
     git archive <commit> | tar -x -C build/parent    # a gitignored dir
     python3 kernel_ab.py build/parent [--arch granite-8b]
 
-Builds both trees' ``src/repro_torch/kernels/csrc`` with nvcc, then
-times each kernel of the arch's main path (``chip_smoke.py``'s shapes,
-bf16, cold L2) with this tree's wrappers over each tree's library, in
-turns (other, this, this, other) and three rounds, and prints the
-median and every reading.  The wrappers' C interface must be the same in
-both trees; a kernel the other tree lacks, or a shape it rejects, fails
-the run.  Ends with the card's name and power limit.
+Each tree is timed through its own wrappers: the other tree's
+``repro_torch.kernels`` is imported apart from this one's (its own
+``_build``, sources and build directory), so the kernels' C interface
+may differ between the trees; their Python entry points may not.  Both
+trees are built first, then each kernel of the arch's main path
+(``chip_smoke.py``'s shapes, bf16 attention, fp32 RG-LRU scan, cold L2)
+is timed in turns (other, this, this, other), three rounds, each reading
+twice: CUDA events around the calls (``ms``, which includes a wrapper's
+host path where that is the longer) and the kernel's own device time
+under torch.profiler (``device ms``).  Prints the medians and every
+reading, then the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 sys.path[:0] = [str(REPO), str(REPO / "src")]
 
+KERNELS = ("flash_attention", "decode_attention", "rglru_scan")
+
+
+def load_tree(root: Path) -> dict:
+    """``{kernel: wrapper}`` of the checkout at ``root``, imported apart
+    from this tree's package (which is put back afterwards)."""
+    def ours():
+        return [k for k in sys.modules
+                if k == "repro_torch" or k.startswith("repro_torch.")]
+    saved = {k: sys.modules.pop(k) for k in ours()}
+    sys.path.insert(0, str(root / "src"))
+    try:
+        mods = {n: importlib.import_module(f"repro_torch.kernels.{n}")
+                for n in KERNELS}
+        mods["decode_attention"]._build.build_all()
+    finally:
+        sys.path.pop(0)
+        for k in ours():
+            del sys.modules[k]
+        sys.modules.update(saved)
+    return {n: getattr(m, n) for n, m in mods.items()}
+
 
 def main():
     import torch
 
     import chip_smoke as cs
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other", type=Path, help="root of the other checkout")
@@ -38,16 +64,11 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: torch.cuda.is_available() is false")
 
-    libs = {}
-    for tree, root in (("other", args.other.resolve()), ("this", REPO)):
-        _build.CSRC = root / "src" / "repro_torch" / "kernels" / "csrc"
-        _build._libs = {}
-        _build.build_all()
-        for name in _build.sources():
-            _build.load(name)
-        libs[tree] = _build._libs
-        print(f"[ab] {tree}: built {sorted(libs[tree])} from {_build.CSRC}",
-              flush=True)
+    _build.build_all()
+    trees = {"other": load_tree(args.other.resolve()),
+             "this": {n: importlib.import_module(
+                 f"repro_torch.kernels.{n}").__dict__[n] for n in KERNELS}}
+    print(f"[ab] built {args.other} and {REPO}", flush=True)
 
     spec = cs.PATHS[args.arch]
     B, S = spec["batch"], spec["prefill"]
@@ -72,26 +93,39 @@ def main():
         kc = cs._rand(gen, (B, Sc, K, hd), dt)
         vc = cs._rand(gen, (B, Sc, K, hd), dt)
         dsets.append((q, kc.transpose(1, 2), vc.transpose(1, 2)))
+    # case: (wrapper of a tree -> timed fn, input sets, iters, kernel name)
     cases = {
-        "flash_attention": (lambda q, k, v: flash_attention(
-            q, k, v, causal=True, window=window), fsets, 50),
-        "decode_attention": (lambda q, k, v: decode_attention(
-            q, k, v, qp, kv, window=window), dsets, 200),
+        "flash_attention": (lambda fl: lambda q, k, v: fl(
+            q, k, v, causal=True, window=window), fsets, 50, "flash_fwd"),
+        "decode_attention": (lambda de: lambda q, k, v: de(
+            q, k, v, qp, kv, window=window), dsets, 200, "decode_"),
     }
-    print(f"[ab] {args.arch}: flash B={B} H={H} K={K} S={S} hd={hd} "
-          f"window={window}; decode B={B} K={K} G={G} S={Sc} hd={hd} "
-          f"({'wrapped ring' if window else 'partly filled'}); bf16",
-          flush=True)
-    for name, (fn, sets, iters) in cases.items():
-        got = {"other": [], "this": []}
+    shapes = (f"flash B={B} H={H} K={K} S={S} hd={hd} window={window}; "
+              f"decode B={B} K={K} G={G} S={Sc} hd={hd} "
+              f"({'wrapped ring' if window else 'partly filled'}); bf16")
+    R = get_config(args.arch).rglru_dim
+    if R:
+        rsets = [(torch.sigmoid(cs._rand(gen, (B, S, R), torch.float32)),
+                  cs._rand(gen, (B, S, R), torch.float32))
+                 for _ in range(cs.n_sets(3 * B * S * R * 4))]
+        cases["rglru_scan"] = (lambda sc: sc, rsets, 50, "rglru_")
+        shapes += f"; rglru_scan B={B} S={S} R={R} fp32"
+    print(f"[ab] {args.arch}: {shapes}", flush=True)
+    for name, (make, sets, iters, match) in cases.items():
+        fns = {tree: make(w[name]) for tree, w in trees.items()}
+        got = {tree: {"ms": [], "device ms": []} for tree in trees}
         for _ in range(3):
             for tree in ("other", "this", "this", "other"):
-                _build._libs = libs[tree]
-                got[tree].append(cs.time_ms(fn, sets, iters=iters))
-        for tree, ms in got.items():
-            ms = sorted(ms)
-            print(f"[ab] {name} {tree}: median {ms[len(ms) // 2]:.5f} ms, "
-                  f"all {[round(x, 5) for x in ms]}", flush=True)
+                got[tree]["ms"].append(cs.time_ms(fns[tree], sets,
+                                                  iters=iters))
+                got[tree]["device ms"].append(cs.device_ms(
+                    fns[tree], sets, match, iters=iters))
+        for tree, readings in got.items():
+            for what, ms in readings.items():
+                ms = sorted(x for x in ms if x is not None)
+                med = f"{ms[len(ms) // 2]:.5f}" if ms else "not measured"
+                print(f"[ab] {name} {tree} {what}: median {med}, all "
+                      f"{[round(x, 5) for x in ms]}", flush=True)
     print(cs.nvidia_smi())
 
 

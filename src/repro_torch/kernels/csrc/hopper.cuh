@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: mbarriers,
-// TMA tile loads, warpgroup matrix multiplies (wgmma) with their
-// shared-memory descriptors, and register reallocation between
-// warpgroups.  Plain inline PTX; no library beyond the CUDA headers.
+// TMA tile loads, cp.async copies completed on mbarriers, warpgroup
+// matrix multiplies (wgmma) with their shared-memory descriptors,
+// ldmatrix and mma.sync, and register reallocation between warpgroups.
+// Plain inline PTX; no library beyond the CUDA headers.
 //
 // The wgmma wrappers take bf16 operands and fp32 accumulators.  Each
 // thread of the warpgroup holds N/2 accumulators of the 64 x N result:
@@ -296,6 +297,66 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ------------------------------------------------------------- cp.async
+// 16 bytes from global to shared memory, bypassing L1; src_bytes < 16
+// fills the rest with zeros (0: no global read at all)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes, the same way (cp.async.cg takes only 16)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// Arrive on bar once this thread's cp.async copies so far have landed.
+// noinc: the arrival counts against the barrier's expected count, so a
+// barrier that n threads fill this way is initialised with count n.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// ------------------------------------------------ mma.sync (m16n8k16)
+// Four 8 x 8 b16 matrices from shared memory; lanes 8i..8i+7 give the
+// row addresses of matrix i.  Thread l receives row l/4, columns
+// 2(l%4), 2(l%4)+1 of each (with .trans: column l/4 of rows 2(l%4),
+// 2(l%4)+1).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// D (16 x 8, fp32) += A (16 x 16, bf16, row-major fragment) B (16 x 8,
+// bf16, column-major fragment).  Thread l = 4g + t holds d[0..1] at row
+// g, columns 2t, 2t+1 and d[2..3] at row g + 8.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ float ex2(float x) {

@@ -1,29 +1,48 @@
 """Decode attention: the CUDA kernel's wrapper and its plain version.
 
 Replaces the Pallas TPU kernel ``repro.kernels.decode_attention``.  The
-kernel is ``csrc/decode_attention.cu`` (a split pass over the cache and
-a combine pass, flash-decoding; its header says what bounds it on the
-H100); ``decode_attention_plain`` computes the same function in plain
-PyTorch, as ``repro.kernels.ref`` does in jnp.
+kernel is ``csrc/decode_attention.cu``: one launch that splits the cache
+axis across blocks and folds the splits' combine in (its header says
+what bounds it on the H100 and how); ``decode_attention_plain`` computes
+the same function in plain PyTorch, as ``repro.kernels.ref`` does in
+jnp.
 
 ``decode_attention`` runs the plain version on a CPU tensor and launches
 the kernel on a CUDA tensor; there is no other switch and no fallback.
-``decode_attention.launches`` counts calls that launched the kernel pair.
+Which of the source's two kernels a launch takes follows from (dtype,
+head_dim) alone (``instance``): bf16 at head_dim 64, 128 and 256 runs
+``decode_mma`` (tensor cores, a cp.async ring); fp32 at every head_dim
+and bf16 at 16 and 32 run ``decode_simt`` (fp32 on the CUDA cores).
+``decode_attention.launches`` counts kernel launches, one a call.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
+from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIMS,
+                                                 rows_aligned)
 
 NEG_INF = -1e30
 MAX_GROUP = 16     # query heads per kv head the kernel holds (G <= 16)
 TILE = 32          # slots per kernel tile; a split is a multiple of it
-TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
+SMS = 132          # the H100's streaming multiprocessors
+MAX_SPLIT = 128    # splits per (b, kv-head) the kernel's combine takes
+MMA_HEAD_DIMS = (64, 128, 256)  # bf16 head dims on the tensor cores
+
+_workspace: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def instance(dtype, hd) -> str:
+    """The kernel a CUDA launch takes: ``"mma"`` (bf16 at head_dim 64,
+    128, 256: tensor cores) or ``"simt"`` (every other supported case)."""
+    return ("mma" if dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS
+            else "simt")
 
 
 def decode_attention_plain(q, k, v, q_pos, kv_pos, *, window=None,
@@ -42,12 +61,25 @@ def decode_attention_plain(q, k, v, q_pos, kv_pos, *, window=None,
     return torch.einsum("bkgs,bksd->bkgd", p, v.float()).to(q.dtype)
 
 
-def split_plan(batch_kv: int, S: int) -> tuple[int, int]:
-    """(chunk, n_split): slots per split block and the number of splits,
-    so that about TARGET_BLOCKS blocks cover the (b, kv-head) pairs."""
-    want = max(1, -(-TARGET_BLOCKS // batch_kv))
-    chunk = -(-S // want)
-    chunk = -(-chunk // TILE) * TILE
+@functools.lru_cache(maxsize=256)
+def split_plan(batch_kv: int, S: int, hd: int, itemsize: int,
+               G: int) -> tuple[int, int]:
+    """(chunk, n_split): slots per split block and the number of splits.
+
+    Sized by bytes: each block gets about 1/SMS of the call's k and v
+    (whole 32-slot tiles), so one wave of blocks covers the card with
+    every block's share in flight at once.  The folded combine then
+    reads n_split * G * hd fp32 partials of a (b, kv-head) on one SM
+    while a block reads chunk * hd of k and v: a split takes at least
+    sqrt(G * S / 2) slots, which keeps the first within about twice the
+    second.  At most MAX_SPLIT splits.
+    """
+    tiles = -(-S // TILE)
+    tile_bytes = 2 * TILE * hd * itemsize
+    per_block = -(-batch_kv * tiles * tile_bytes // SMS)
+    n_tiles = max(1, -(-per_block // tile_bytes), -(-tiles // MAX_SPLIT),
+                  -(-math.isqrt(G * S // 2) // TILE))
+    chunk = min(tiles, n_tiles) * TILE
     return chunk, -(-S // chunk)
 
 
@@ -66,31 +98,47 @@ def decode_attention(q, k, v, q_pos, kv_pos, *, window=None, softcap=None):
     B, K, G, hd = q.shape
     S = k.shape[2]
     _check(q, k, v, q_pos, kv_pos)
-    chunk, n_split = split_plan(B * K, S)
+    chunk, n_split = split_plan(B * K, S, hd, q.element_size(), G)
     o = torch.empty_like(q)
-    part_acc = torch.empty((B * K * n_split * G * hd,), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((B * K * n_split * G * 2,), dtype=torch.float32,
-                          device=q.device)
-    strides = (ctypes.c_int64 * 14)(
-        *(t.stride(i) for t in (q, k, v) for i in range(3)),
-        kv_pos.stride(0), kv_pos.stride(1),
-        *(o.stride(i) for i in range(3)))
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+    ticket, part = _scratch(q.device, stream, B * K,
+                            B * K * n_split * G * (hd + 2))
+    strides = (ctypes.c_int64 * 14)(*q.stride()[:3], *k.stride()[:3],
+                                    *v.stride()[:3], *kv_pos.stride(),
+                                    *o.stride()[:3])
     lib = _build.load("decode_attention")
     fn = lib.decode_attention_fwd
-    fn.argtypes = [_build.P] * 8 + [_build.I32] * 8 + [
-        ctypes.POINTER(ctypes.c_int64), _build.I32, _build.F32, _build.F32,
-        _build.I32, _build.P]
-    fn.restype = _build.I32
+    if fn.argtypes is None:  # first call on this library
+        fn.argtypes = [_build.P] * 8 + [_build.I32] * 8 + [
+            ctypes.POINTER(ctypes.c_int64), _build.I32, _build.F32,
+            _build.F32, _build.I32, _build.P]
+        fn.restype = _build.I32
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-             kv_pos.data_ptr(), o.data_ptr(), part_acc.data_ptr(),
-             part_ml.data_ptr(), DTYPES[q.dtype], hd, B, K, G, S, chunk,
+             kv_pos.data_ptr(), o.data_ptr(), part.data_ptr(),
+             ticket.data_ptr(), DTYPES[q.dtype], hd, B, K, G, S, chunk,
              n_split, strides, int(window or 0), float(softcap or 0.0),
-             hd ** -0.5, q.device.index,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             hd ** -0.5, q.device.index, stream)
     _build.check(lib, err, "decode_attention")
     decode_attention.launches += 1
     return o
+
+
+def _scratch(device, stream, n_pairs, n_part):
+    """The ticket counters (int32, zeroed once; the kernel leaves them at
+    0) and partials buffer (fp32) of one (device, stream), grown as calls
+    need.  Kept across calls: calls on one stream run in order, so they
+    reuse them safely; calls on two streams of a device, which may
+    overlap, get a set each."""
+    key = (device.index, stream)
+    ticket, part = _workspace.get(key, (None, None))
+    if ticket is None or ticket.numel() < n_pairs:
+        ticket = torch.zeros((max(n_pairs, 64),), dtype=torch.int32,
+                             device=device)
+    if part is None or part.numel() < n_part:
+        part = torch.empty((max(n_part, 1 << 16),), dtype=torch.float32,
+                           device=device)
+    _workspace[key] = (ticket, part)
+    return ticket, part
 
 
 decode_attention.launches = 0
@@ -123,3 +171,18 @@ def _check(q, k, v, q_pos, kv_pos):
                          f"{tuple(kv_pos.shape)}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("decode_attention: head_dim must be contiguous")
+    check_rows_aligned(q, k, v)
+
+
+def check_rows_aligned(q, k, v):
+    """Raise ValueError unless the rows the chosen kernel loads in
+    16-byte units start on 16-byte boundaries: k's and v's, and q's
+    where the instance is ``"mma"`` (its producer copies q with
+    cp.async; the CUDA-core kernel reads q element by element)."""
+    kind = instance(q.dtype, q.shape[-1])
+    names = {"q": q, "k": k, "v": v} if kind == "mma" else {"k": k, "v": v}
+    bad = [n for n, t in names.items() if not rows_aligned(t)]
+    if bad:
+        raise ValueError(f"decode_attention: rows of {', '.join(bad)} must "
+                         f"start on 16-byte boundaries (the {kind} kernel "
+                         f"loads {', '.join(names)} in 16-byte units)")

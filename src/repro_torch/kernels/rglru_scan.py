@@ -2,9 +2,10 @@
 
 Replaces the Pallas TPU kernel ``repro.kernels.rglru_scan``.  The kernel
 is ``csrc/rglru_scan.cu`` (one thread per (batch, channel) walking the
-time axis with its state in a register; its header says what bounds it
-on the H100); ``rglru_scan_plain`` computes the same function in plain
-PyTorch, with the semantics of ``repro.kernels.ref.ref_rglru_scan``.
+time axis with its state in a register and the next 32 steps' loads in
+flight; its header says what bounds it on the H100);
+``rglru_scan_plain`` computes the same function in plain PyTorch, with
+the semantics of ``repro.kernels.ref.ref_rglru_scan``.
 
 ``rglru_scan`` runs the plain version on a CPU tensor and launches the
 kernel on a CUDA tensor; there is no other switch and no fallback.
@@ -51,8 +52,9 @@ def rglru_scan(a, b, h0=None):
     h0f = None if h0 is None else h0.to(torch.float32).contiguous()
     lib = _build.load("rglru_scan")
     fn = lib.rglru_scan_fwd
-    fn.argtypes = [_build.P] * 4 + [_build.I32] * 5 + [_build.P]
-    fn.restype = _build.I32
+    if fn.argtypes is None:  # first call on this library
+        fn.argtypes = [_build.P] * 4 + [_build.I32] * 5 + [_build.P]
+        fn.restype = _build.I32
     err = fn(a.data_ptr(), b.data_ptr(),
              None if h0f is None else h0f.data_ptr(), h.data_ptr(),
              DTYPES[a.dtype], B, S, R, a.device.index,

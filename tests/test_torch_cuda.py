@@ -29,6 +29,11 @@ from repro_torch.models import model as M  # noqa: E402
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+# decode's outputs are averages over many slots, |o| ~ sqrt(e / n_valid)
+# (0.036 at 2048 slots), so its bf16 limit is held to the output's scale:
+# a split of the combine read stale or left out moves o by ~0.01
+DECODE_TOL = {torch.float32: TOL[torch.float32],
+              torch.bfloat16: dict(rtol=2e-2, atol=5e-3)}
 
 
 @pytest.fixture
@@ -100,38 +105,154 @@ def test_flash_kernel_rejects_misaligned_rows(cuda, which, hd):
     assert flash_attention.launches == n0
 
 
+def _decode_inputs(rng, B, K, G, S, hd, dtype, device, ring):
+    q = _rand(rng, (B, K, G, hd), dtype, device)
+    k = _rand(rng, (B, K, S, hd), dtype, device)
+    v = _rand(rng, (B, K, S, hd), dtype, device)
+    base = torch.arange(S, device=device)
+    if ring:  # slot i holds the newest position p <= cur with p % S == i
+        cur = S + 7
+        kv_pos = torch.where(base <= cur % S, base + (cur // S) * S,
+                             base + (cur // S - 1) * S)
+        q_pos = torch.full((B,), cur, dtype=torch.int32, device=device)
+    else:
+        n_valid = max(1, S - 7)
+        kv_pos = torch.where(base < n_valid, base, -1)
+        q_pos = torch.full((B,), n_valid - 1, dtype=torch.int32,
+                           device=device)
+    kv_pos = kv_pos.to(torch.int32).expand(B, S).contiguous()
+    return q, k, v, q_pos, kv_pos
+
+
+@pytest.mark.parametrize("which,dtype,hd", [
+    ("k", torch.float32, 16), ("v", torch.bfloat16, 128),
+    ("q", torch.bfloat16, 128)])
+def test_decode_kernel_rejects_misaligned_rows(cuda, which, dtype, hd):
+    """k and v rows must be 16-byte aligned for both kernels; q rows too
+    for the tensor-core kernel (bf16 at hd 128), which copies q with
+    cp.async."""
+    rng = np.random.default_rng(4)
+    args = dict(zip("qkv", (
+        _rand(rng, (1, 2, 4 if n == "q" else 40, hd), dtype, cuda)
+        for n in "qkv")))
+    bad = _rand(rng, (1, 2, 4 if which == "q" else 40, hd + 4), dtype,
+                cuda)[..., 2:hd + 2]
+    args[which] = bad
+    q_pos = torch.full((1,), 39, dtype=torch.int32, device=cuda)
+    kv_pos = torch.arange(40, dtype=torch.int32, device=cuda)[None]
+    n0 = decode_attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_attention(args["q"], args["k"], args["v"], q_pos, kv_pos)
+    assert decode_attention.launches == n0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,K,G,S,hd,window,cap,ring", [
     (4, 8, 4, 640, 128, None, None, False),
     (2, 2, 1, 40, 16, 16, None, False),
     (1, 2, 2, 33, 32, None, 30.0, False),
     (2, 1, 10, 96, 256, 96, None, True),  # recurrentgemma: wrapped ring
+    # the bf16 cases below run the tensor-core kernel: S below one 32-slot
+    # tile (one split, o written directly), S ragged against the tile and
+    # the split, G = 1 / 4 / 10 / 16, hd 64 / 128 / 256, wrapped rings
+    # with window and softcap, and both main paths' shapes
+    (1, 2, 4, 20, 128, None, None, False),
+    (2, 2, 4, 77, 128, None, None, False),
+    (1, 1, 1, 300, 64, None, None, False),
+    (2, 2, 4, 150, 64, 40, 30.0, True),
+    (1, 1, 16, 200, 128, None, None, False),
+    (2, 1, 10, 333, 256, 64, 50.0, True),
+    (1, 4, 4, 1000, 128, 128, 30.0, True),
+    (4, 1, 10, 2048, 256, 2048, None, True),
 ])
 def test_decode_kernel_matches_plain(cuda, B, K, G, S, hd, window, cap,
                                      ring, dtype):
     rng = np.random.default_rng(S + hd)
-    q = _rand(rng, (B, K, G, hd), dtype, cuda)
-    k = _rand(rng, (B, K, S, hd), dtype, cuda)
-    v = _rand(rng, (B, K, S, hd), dtype, cuda)
-    base = torch.arange(S, device=cuda)
-    if ring:  # slot i holds the newest position p <= cur with p % S == i
-        cur = S + 7
-        kv_pos = torch.where(base <= cur % S, base + (cur // S) * S,
-                             base + (cur // S - 1) * S)
-        q_pos = torch.full((B,), cur, dtype=torch.int32, device=cuda)
-    else:
-        n_valid = S - 7
-        kv_pos = torch.where(base < n_valid, base, -1)
-        q_pos = torch.full((B,), n_valid - 1, dtype=torch.int32,
-                           device=cuda)
-    kv_pos = kv_pos.to(torch.int32).expand(B, S).contiguous()
+    args = _decode_inputs(rng, B, K, G, S, hd, dtype, cuda, ring)
     kw = dict(window=window, softcap=cap)
     n0 = decode_attention.launches
-    got = decode_attention(q, k, v, q_pos, kv_pos, **kw)
+    got = decode_attention(*args, **kw)
     torch.cuda.synchronize()
     assert decode_attention.launches == n0 + 1
     torch.testing.assert_close(got.float(), decode_attention_plain(
-        q, k, v, q_pos, kv_pos, **kw).float(), **TOL[dtype])
+        *args, **kw).float(), **DECODE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 16),
+                                      (torch.bfloat16, 16),
+                                      (torch.bfloat16, 128),
+                                      (torch.bfloat16, 256)])
+@pytest.mark.parametrize("S", [20, 100])
+def test_decode_kernel_row_without_valid_slot(cuda, dtype, hd, S):
+    """Every slot empty: the oracle's answer, the mean of v over the S
+    slots, with one split (S 20) and through the folded combine (S 100)."""
+    rng = np.random.default_rng(S)
+    q = _rand(rng, (1, 1, 4, hd), dtype, cuda)
+    k = _rand(rng, (1, 1, S, hd), dtype, cuda)
+    v = _rand(rng, (1, 1, S, hd), dtype, cuda)
+    q_pos = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    kv_pos = torch.full((1, S), -1, dtype=torch.int32, device=cuda)
+    got = decode_attention(q, k, v, q_pos, kv_pos)
+    want = v.float().mean(dim=2, keepdim=True).expand(1, 1, 4, hd)
+    torch.testing.assert_close(got.float(), want.to(dtype).float(),
+                               **DECODE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 128),
+                                      (torch.bfloat16, 128),
+                                      (torch.bfloat16, 256)])
+def test_decode_kernel_back_to_back_calls(cuda, dtype, hd):
+    """Calls in a row, without a sync between them, reuse the combine's
+    ticket counters and partials: each call's answer must be its own."""
+    rng = np.random.default_rng(hd)
+    calls = [_decode_inputs(rng, 2, 2, 4, S, hd, dtype, cuda, ring)
+             for S, ring in ((300, False), (300, True), (700, False))]
+    got = [decode_attention(*args, window=64) for args in calls]
+    torch.cuda.synchronize()
+    for args, o in zip(calls, got):
+        torch.testing.assert_close(o.float(), decode_attention_plain(
+            *args, window=64).float(), **DECODE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 128),
+                                      (torch.bfloat16, 256)])
+def test_decode_kernel_calls_on_two_streams(cuda, dtype, hd):
+    """Calls in flight on two streams at once each use their stream's
+    ticket counters and partials: both answers are right."""
+    rng = np.random.default_rng(hd + 1)
+    calls = [_decode_inputs(rng, 4, 2, 4, 640, hd, dtype, cuda, ring)
+             for ring in (False, True)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    got = []
+    for args, st in zip(calls, streams):
+        with torch.cuda.stream(st):
+            got.append([decode_attention(*args) for _ in range(8)])
+    torch.cuda.synchronize()
+    for args, outs in zip(calls, got):
+        want = decode_attention_plain(*args).float()
+        for o in outs:
+            torch.testing.assert_close(o.float(), want, **DECODE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,hd,kernel", [
+    (torch.bfloat16, 128, "decode_mma"), (torch.bfloat16, 256, "decode_mma"),
+    (torch.float32, 128, "decode_simt")])
+def test_decode_kernel_one_launch_per_call(cuda, dtype, hd, kernel):
+    """The combine is folded into the one launch: the profiler sees one
+    kernel a call, of the instance ``instance()`` names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(9)
+    args = _decode_inputs(rng, 4, 2, 4, 640, hd, dtype, cuda, False)
+    decode_attention(*args)  # scratch allocated outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode_attention(*args)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and kernel in names[0], names
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -140,6 +261,10 @@ def test_decode_kernel_matches_plain(cuda, B, K, G, S, hd, window, cap,
     (1, 40, 130, True),   # ragged channel dim
     (2, 17, 64, True),    # ragged time dim
     (4, 300, 2560, True),  # recurrentgemma's width
+    (2, 1, 64, True),     # one step
+    (1, 37, 2560, False),  # S not a multiple of the 32-step buffer
+    (2, 50, 33, True),    # R not a multiple of the 64-channel block
+    (4, 2048, 2560, False),  # recurrentgemma's prefill
 ])
 def test_rglru_kernel_matches_plain(cuda, B, S, R, with_h0, dtype):
     rng = np.random.default_rng(S + R)
@@ -153,6 +278,36 @@ def test_rglru_kernel_matches_plain(cuda, B, S, R, with_h0, dtype):
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), rglru_scan_plain(
         a, b, h0).float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("h0_dtype", [torch.bfloat16, torch.float16])
+def test_rglru_kernel_h0_any_dtype(cuda, h0_dtype):
+    """h0 of another dtype than a is read as fp32, as the plain version
+    reads it."""
+    rng = np.random.default_rng(21)
+    a = torch.sigmoid(_rand(rng, (2, 40, 96), torch.float32, cuda))
+    b = _rand(rng, (2, 40, 96), torch.float32, cuda)
+    h0 = _rand(rng, (2, 96), h0_dtype, cuda)
+    got = rglru_scan(a, b, h0)
+    torch.testing.assert_close(got, rglru_scan_plain(a, b, h0),
+                               **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_unaligned_start(cuda, dtype):
+    """a and b starting one element past a 16-byte boundary (a contiguous
+    slice of a larger buffer): the kernel reads elements, so any
+    alignment is taken."""
+    rng = np.random.default_rng(22)
+    B, S, R = 2, 45, 70
+    n = B * S * R
+    a = torch.sigmoid(_rand(rng, (n + 1,), torch.float32, cuda)).to(
+        dtype)[1:].view(B, S, R)
+    b = _rand(rng, (n + 3,), dtype, cuda)[3:].view(B, S, R)
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    got = rglru_scan(a, b)
+    torch.testing.assert_close(got.float(), rglru_scan_plain(a, b).float(),
+                               **TOL[dtype])
 
 
 @pytest.mark.parametrize("arch,n_dec", [("granite-8b", 5),

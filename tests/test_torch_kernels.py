@@ -8,6 +8,8 @@ plain versions on the card by chip_smoke.py and tests/test_torch_cuda.py.
 Inputs are made with numpy from a seed and handed to both packages.
 """
 
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -29,6 +31,12 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, split_plan,
+)
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    check_rows_aligned as check_decode_rows_aligned,
+)
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    instance as decode_instance,
 )
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     check_rows_aligned, flash_attention, rows_aligned,
@@ -155,16 +163,69 @@ def test_decode_row_without_valid_slot_matches_oracle():
                                rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("batch_kv,S,want", [
-    (32, 640, (96, 7)),     # granite-8b decode: B=4 x K=8 kv heads
-    (1, 40, (32, 2)),
-    (4, 33, (32, 2)),
-    (512, 640, (640, 1)),   # enough (b, kv-head) pairs: no split
+@pytest.mark.parametrize("batch_kv,S,hd,itemsize,G,want", [
+    (32, 640, 128, 2, 4, (160, 4)),   # granite-8b decode: B=4 x K=8
+    (4, 2048, 256, 2, 10, (128, 16)),  # recurrentgemma-2b: B=4 x 1 kv
+    # head; its byte share (64 slots) gives way to the combine's bound
+    (1, 40, 16, 4, 2, (32, 2)),
+    (4, 33, 16, 4, 2, (32, 2)),
+    (512, 640, 128, 2, 4, (640, 1)),  # enough bytes a pair: no split
+    (32, 32768, 128, 2, 4, (7968, 5)),  # long cache: ~4 MB a block
+    (1, 65536, 128, 2, 4, (512, 128)),  # held to MAX_SPLIT splits
 ])
-def test_decode_split_plan(batch_kv, S, want):
-    chunk, n_split = split_plan(batch_kv, S)
+def test_decode_split_plan(batch_kv, S, hd, itemsize, G, want):
+    """Each block gets about 1/132 of the call's k/v bytes, in whole
+    32-slot tiles, at least sqrt(G * S / 2) slots (the folded combine's
+    share), and a (b, kv-head) at most 128 splits."""
+    chunk, n_split = split_plan(batch_kv, S, hd, itemsize, G)
     assert (chunk, n_split) == want
     assert chunk % 32 == 0 and (n_split - 1) * chunk < S <= n_split * chunk
+    assert n_split <= 128
+    assert chunk >= min(S, math.isqrt(G * S // 2))
+    tile_bytes = 2 * 32 * hd * itemsize
+    share = batch_kv * -(-S // 32) * tile_bytes / 132
+    assert n_split == 1 or chunk // 32 * tile_bytes >= share
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.bfloat16, 64, "mma"), (torch.bfloat16, 128, "mma"),
+    (torch.bfloat16, 256, "mma"),
+    (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 256, "simt"),
+])
+def test_decode_instance_by_dtype_and_head_dim(dtype, hd, want):
+    """bf16 at head_dim 64/128/256 runs on the tensor cores (mma.sync);
+    fp32 and the small bf16 heads stay on the CUDA-core kernel."""
+    assert decode_instance(dtype, hd) == want
+
+
+@pytest.mark.parametrize("dtype,hd,misaligned,raises", [
+    (torch.bfloat16, 128, "k", True),
+    (torch.bfloat16, 256, "v", True),
+    (torch.bfloat16, 16, "k", True),    # the CUDA-core kernel too
+    (torch.float32, 128, "v", True),
+    (torch.bfloat16, 128, "q", True),   # cp.async copies q: aligned
+    (torch.bfloat16, 64, "q", True),
+    (torch.bfloat16, 32, "q", False),   # the CUDA-core kernel reads q
+    (torch.float32, 128, "q", False),   # element by element
+    (torch.bfloat16, 128, None, False),
+    (torch.float32, 16, None, False),
+])
+def test_decode_rows_aligned(dtype, hd, misaligned, raises):
+    """Both decode kernels load k and v rows in 16-byte units, and the
+    tensor-core kernel q's rows too; the wrapper accepts a view only
+    where those rows start on 16-byte boundaries."""
+    def rows(name):
+        base = torch.zeros((1, 2, 8, hd + 8), dtype=dtype)
+        return base[..., 1:hd + 1] if name == misaligned else base[..., :hd]
+    q, k, v = rows("q"), rows("k"), rows("v")
+    if raises:
+        with pytest.raises(ValueError, match=f"rows of {misaligned} "):
+            check_decode_rows_aligned(q, k, v)
+    else:
+        check_decode_rows_aligned(q, k, v)
 
 
 # ---------------------------------------------------------------- rg-lru
