@@ -14,13 +14,15 @@ Phases, each raising on failure (the script then exits non-zero):
               each flash instance's HGMMA (wgmma) and UTMALDG (TMA load)
               counts and each decode instance's HMMA (mma.sync) and LDGSTS
               (cp.async) counts; fail unless the bf16 instances at head_dim
-              128 and 256 of both kernels have theirs (they run on the
+              64, 128 and 256 of both kernels have theirs (they run on the
               tensor cores, fed by asynchronous copies);
 3. kernels -- hold each kernel against its plain PyTorch version on the
-              card, at the shapes of both main paths -- granite-8b
-              (batch 4, prefill 512, cache 640, hd 128, G 4) and
+              card, at the shapes of the three main paths -- granite-8b
+              (batch 4, prefill 512, cache 640, hd 128, G 4),
               recurrentgemma-2b (batch 4, prefill 2048, window 2048,
-              hd 256, G 10 over one kv head; RG-LRU (4, 2048, 2560)) --
+              hd 256, G 10 over one kv head; RG-LRU (4, 2048, 2560)) and
+              granite-moe-1b-a400m (batch 4, prefill 512, cache 640,
+              hd 64, G 2) --
               and at small windowed / softcapped / ragged (S 130, 200
               against 64- and 128-key tiles) / bidirectional / ring-buffer
               shapes, in bf16 (tolerance 3e-2; decode's 2e-2 relative
@@ -30,21 +32,31 @@ Phases, each raising on failure (the script then exits non-zero):
               (scaled_dot_product_attention, a yardstick the port never
               calls; none for the RG-LRU scan) with CUDA events (``ms``:
               includes the wrapper's host path where it is the longer);
-4. parity  -- reduced() granite-8b and recurrentgemma-2b in fp32: the
-              CUDA model (kernels) against the CPU model (plain versions)
-              on the same params: prefill logits, every cache leaf and
-              decode steps (recurrentgemma's run past its window of 16,
-              so the ring wraps), 2e-3;
-5. serve   -- the main paths, one after the other: ServingEngine for
-              full-width granite-8b (36 layers, d_model 4096) and then,
-              with granite's engine freed, full-width recurrentgemma-2b
-              (26 layers, d_model 2560), random weights from a seed;
+4. parity  -- reduced() granite-8b, recurrentgemma-2b, granite-moe-1b-
+              a400m and olmoe-1b-7b in fp32: the CUDA model (kernels)
+              against the CPU model (plain versions) on the same params:
+              prefill logits, every cache leaf, the MoE router load and
+              loss, and decode steps (recurrentgemma's run past its
+              window of 16, so the ring wraps), 2e-3;
+5. serve   -- the main paths, one after the other, each engine freed
+              before the next: ServingEngine for full-width granite-8b
+              (36 layers, d_model 4096), recurrentgemma-2b (26 layers,
+              d_model 2560) and granite-moe-1b-a400m (24 layers, d_model
+              1024, 32 experts top-8), random weights from a seed;
               cold_start(), 3 ``generate`` requests of 16 new tokens and
               1 ``score`` request each, with the launch counters set to 0
               just before each path and read just after;
+5b. launcher -- granite-moe-1b-a400m through
+              ``repro_torch.launch.serve.run_service`` at the same
+              shapes, once per policy (eager, lazy, slimstart from the
+              eager run's report) on the bench's skewed workload of 24
+              requests: cold start by group, deferred components, the
+              first hot request's latency, the trace's end-to-end time;
 6. breakdown -- for information, after each path: prefill and
               decode-step times, and a torch.profiler trace of one
-              request (device busy share, kernel time by kind);
+              request (device busy share, kernel time by kind); for
+              granite-moe also one ``moe_apply`` alone at the prefill
+              (4 x 512) and decode (4 x 1) shapes, CUDA events;
 7. device_ms -- each kernel's device time a call under torch.profiler
               (``device_ms``) at phase 3's timed shapes, taken last so
               that no profiler session of it comes before phases 5 and
@@ -84,7 +96,10 @@ MODEL_TOL = dict(rtol=2e-3, atol=2e-3)
 # the main paths: batch, prompt length, cache length (max_len), new tokens
 PATHS = {"granite-8b": dict(batch=4, prefill=512, cache=640, new=16),
          "recurrentgemma-2b": dict(batch=4, prefill=2048, cache=2064,
-                                   new=16)}
+                                   new=16),
+         "granite-moe-1b-a400m": dict(batch=4, prefill=512, cache=640,
+                                      new=16)}
+N_LAUNCHER_REQUESTS = 24  # the bench's workload length
 N_GENERATE = 3
 L2_BYTES = 50 * 2**20
 
@@ -122,20 +137,24 @@ def device_ms(fn, sets, match, iters=20, warmup=3):
     """Device ms per call of fn(*s), a call launching one kernel whose
     name holds ``match``: those kernels' summed torch.profiler durations
     over ``iters`` calls, over the number of them the profiler recorded
-    (after an earlier session in the process it may miss a few; the
-    count is printed then); None if it recorded none."""
+    (after an earlier session in the process it may miss some, or all:
+    then up to two more sessions are taken; the count is printed); None
+    if none recorded any."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for i in range(warmup):
         fn(*sets[i % len(sets)])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*sets[i % len(sets)])
-        torch.cuda.synchronize()
-    us = [ev.time_range.elapsed_us() for ev in prof.events()
-          if ev.device_type == DeviceType.CUDA and match in ev.name]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*sets[i % len(sets)])
+            torch.cuda.synchronize()
+        us = [ev.time_range.elapsed_us() for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA and match in ev.name]
+        if us:
+            break
     if len(us) != iters:
         log(f"[device_ms] the profiler recorded {len(us)} of {iters} "
             f"{match} kernels")
@@ -193,8 +212,8 @@ def phase_build():
 # the bf16 instances that must run on the tensor cores, by library: the
 # kernel symbol, the head dims, and the SASS each must hold (all of the
 # first group; at least one of the second)
-TC_HEAD_DIMS = {"flash_attention": (128, 256),
-                "decode_attention": (128, 256)}
+TC_HEAD_DIMS = {"flash_attention": (64, 128, 256),
+                "decode_attention": (64, 128, 256)}
 TC_SASS = {"flash_attention": (r"flash_fwd_wgmmaILi(\d+)E", ("HGMMA",),
                                ("UTMALDG",)),
            "decode_attention": (r"decode_mmaILi(\d+)E", ("HMMA",),
@@ -631,10 +650,15 @@ def phase_parity(arch, n_dec):
     B, T0 = 2, 8
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab, (B, T0 + n_dec)).astype(np.int32))
-    lc, cc, _ = M.prefill(cfg, params, toks[:, :T0], cache_len=T0 + n_dec)
-    lg, cg, _ = M.prefill(cfg, params_gpu, toks[:, :T0].cuda(),
-                          cache_len=T0 + n_dec)
+    lc, cc, ac = M.prefill(cfg, params, toks[:, :T0],
+                           cache_len=T0 + n_dec)
+    lg, cg, ag = M.prefill(cfg, params_gpu, toks[:, :T0].cuda(),
+                           cache_len=T0 + n_dec)
     errs = [_close(lg, lc, "prefill logits")]
+    if ag.keys() != ac.keys():
+        raise RuntimeError(f"parity aux keys {sorted(ag)} != {sorted(ac)}")
+    for name in ac:  # MoE: router load and load-balancing loss
+        errs.append(_close(ag[name], ac[name], f"prefill aux {name}"))
     want = dict(_leaves(cc))
     for name, got in _leaves(cg):
         errs.append(_close(got, want[name], f"prefill cache {name}"))
@@ -648,7 +672,8 @@ def phase_parity(arch, n_dec):
     for name, got in _leaves(cg):
         errs.append(_close(got, want[name], f"decoded cache {name}"))
     log(f"[parity] {arch} reduced fp32, CUDA kernels vs CPU plain: "
-        f"{len(want)} cache leaves, {n_dec} decode steps to position "
+        f"{len(want)} cache leaves, aux {sorted(ac)}, {n_dec} decode "
+        f"steps to position "
         f"{T0 + n_dec - 1} (window {cfg.window_size}): max abs err "
         f"{max(errs):.3e} (tolerance 2e-3) ok")
 
@@ -668,6 +693,14 @@ def _kernel_counters():
     from repro_torch.kernels.rglru_scan import rglru_scan
     return {"flash_attention": flash_attention,
             "decode_attention": decode_attention, "rglru_scan": rglru_scan}
+
+
+def _layer_counts(cfg):
+    """(attention layers, RG-LRU layers) of the config."""
+    from repro_torch.models import model as M
+    pat, n_per, n_rem = M.layer_layout(cfg)
+    kinds = list(pat) * n_per + list(pat[:n_rem])
+    return sum(k.startswith("attn") for k in kinds), kinds.count("rglru")
 
 
 def phase_serve(arch, entries):
@@ -706,10 +739,7 @@ def phase_serve(arch, entries):
     logits, dt_score = eng.serve("score", rng.integers(0, cfg.vocab, (B, P)))
     got = {name: fn.launches for name, fn in counters.items()}
 
-    pat, n_per, n_rem = M.layer_layout(cfg)
-    kinds = list(pat) * n_per + list(pat[:n_rem])
-    n_attn = sum(k.startswith("attn") for k in kinds)
-    n_rglru = kinds.count("rglru")
+    n_attn, n_rglru = _layer_counts(cfg)
     want = {"flash_attention": n_attn * (N_GENERATE + 1),
             "decode_attention": n_attn * (NEW - 1) * N_GENERATE,
             "rglru_scan": n_rglru * (N_GENERATE + 1)}
@@ -730,6 +760,8 @@ def phase_serve(arch, entries):
         f"score latency_s {dt_score:.4f}")
     log(f"[serve] {arch} max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if cfg.moe is not None:
+        log_experts(f"[serve] {arch}", eng.report())
     log(f"[serve] {arch} first request tokens[0]: {outs[0][1][0].tolist()}")
 
     # for information: full-width prefill+decode logits against the
@@ -758,6 +790,119 @@ def phase_serve(arch, entries):
     return eng
 
 
+def log_experts(tag, rep):
+    """The expert_utilization of an MoE engine's report: its spread, the
+    experts under LoadPolicy.from_report's 2% threshold, every share."""
+    util = rep["expert_utilization"]
+    low = [e for e, u in util.items() if u < 0.02]
+    log(f"{tag} expert_utilization min {min(util.values())} max "
+        f"{max(util.values())}; {len(low)} of {len(util)} under 2% "
+        f"{low}; {json.dumps(util)}")
+
+
+def phase_launcher(arch):
+    """The Level-B launcher at the path's full-width shapes: the bench's
+    loop (eager run, its report as the slimstart policy's profile, then
+    lazy and slimstart runs) over one skewed workload, each engine freed
+    before the next is built.  Launch counts are checked per run: every
+    request and every warm-up the run built goes through the kernels."""
+    import gc
+    from collections import Counter
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (lazy_policy, run_service,
+                                          skewed_workload)
+    from repro_torch.serving import LoadPolicy, ServingEngine
+    cfg = get_config(arch)
+    spec = PATHS[arch]
+    NEW = spec["new"]
+    shapes = dict(max_new=NEW, batch_size=spec["batch"],
+                  prompt_len=spec["prefill"], max_len=spec["cache"],
+                  device="cuda")
+    workload = skewed_workload(ServingEngine(cfg).entries(),
+                               N_LAUNCHER_REQUESTS, seed=1)
+    hot = workload[0]
+    n_gen = workload.count("generate")
+    n_attn, _ = _layer_counts(cfg)
+    log(f"[launcher] {arch}: batch {spec['batch']}, prompt "
+        f"{spec['prefill']}, max_len {spec['cache']}, {NEW} new tokens; "
+        f"workload {dict(Counter(workload))}, first (hot) {hot!r}")
+    counters = _kernel_counters()
+    policies = {"eager": LoadPolicy.eager_all(), "lazy": lazy_policy()}
+    for name in ("eager", "lazy", "slimstart"):
+        policy = policies[name]
+        for fn in counters.values():
+            fn.launches = 0
+        eng, cold, lat = run_service(cfg, policy, workload, seed=1,
+                                     **shapes)
+        got = {n: fn.launches for n, fn in counters.items()}
+        rep = eng.report()
+        deferred = [c.name for c in eng.registry.values()
+                    if policy.is_lazy(c)]
+        built = [e for e in eng.entries()
+                 if eng.registry[f"compile.{e}"].ready]
+        want = {"flash_attention": n_attn * (len(workload) + len(built)),
+                "decode_attention": n_attn * ((NEW - 1) * n_gen
+                                              + ("generate" in built)),
+                "rglru_scan": 0}
+        if got != want:
+            raise RuntimeError(f"launcher {name}: launches {got}, want "
+                               f"{want}")
+        e2e = cold + sum(sum(v) for v in lat.values())
+        log(f"[launcher] {name}: cold_start_s {cold:.4f} by_group "
+            f"{rep['by_group']} (at the end: {rep['total_init_s']} s in "
+            f"all); {len(deferred)} deferred "
+            f"{sorted(deferred, key=lambda n: (len(n), n))}")
+        log(f"[launcher] {name}: first hot request ({hot}) "
+            f"{lat[hot][0]:.4f} s; trace end-to-end {e2e:.4f} s; entry "
+            f"latency_s mean "
+            f"{ {k: round(float(np.mean(v)), 4) for k, v in lat.items()} }"
+            f"; launches {got}")
+        log_experts(f"[launcher] {name}:", rep)
+        if name == "eager":
+            policies["slimstart"] = LoadPolicy.from_report(rep)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_moe_timing(eng):
+    """One moe_apply alone (layer 0's weights, CUDA events, cold L2) at
+    the path's prefill (B x P tokens) and decode (B x 1) shapes, beside
+    the least time this run's routing needs: the weights of the experts
+    that got a kept slot, x and y once, at 3.35 TB/s; or the kept slots'
+    expert products and the router at 989 TFLOP/s."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import _index
+    cfg = eng.cfg
+    spec = PATHS[cfg.name]
+    B, D, E = spec["batch"], cfg.d_model, cfg.moe.n_experts
+    Fe = cfg.moe.d_expert_ff
+    p = _index(eng._params["layers"]["scan"]["pos0"], 0)["moe"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for S, what in ((spec["prefill"], "prefill"), (1, "decode")):
+        N = B * S
+        sets = [(_rand(gen, (B, S, D), cfg.tdtype),) for _ in range(4)]
+        ms = time_ms(lambda x: L.moe_apply(p, cfg, x), sets)
+        gs = min(cfg.moe_group, N)
+        _, _, top_e, pos, cap, _ = L.moe_route(p, cfg, sets[0][0].reshape(
+            N // gs, gs, D))
+        kept = pos < cap
+        used = int(top_e[kept].unique().numel())
+        n_kept = int(kept.sum())
+        es = torch.finfo(cfg.tdtype).bits // 8
+        byts = used * 3 * D * Fe * es + 2 * N * D * es + D * E * es
+        flops = 2 * n_kept * 3 * D * Fe + 2 * N * D * E
+        bound = max(byts / PEAK_BYTES_S, flops / PEAK_FLOPS[cfg.dtype]) * 1e3
+        log(f"[breakdown] {cfg.name} moe_apply {what} (B={B} S={S}, "
+            f"{cfg.dtype}): {ms:.4f} ms (events, one layer); capacity "
+            f"{cap}, {n_kept} of {N * cfg.moe.top_k} slots kept, {used} of "
+            f"{E} experts used, {E * (N // gs) * cap} rows computed; bound "
+            f"{bound:.4f} ms ({byts:.4g} B, {flops:.4g} flop)")
+
+
 def phase_breakdown(eng):
     """Where one generate request's time goes, for information: prefill
     and decode-step wall times (host clock around synchronised calls),
@@ -776,7 +921,7 @@ def phase_breakdown(eng):
     def request(times):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        nxt, caches = exes["prefill"](params, toks)
+        nxt, caches, _ = exes["prefill"](params, toks)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         tok = nxt[:, None]
@@ -855,6 +1000,13 @@ def main():
                 (1, 1, 16, 200, 128, None, None, "hd 128 G 16 S 200"),
                 (2, 2, 1, 150, 64, 40, 30.0,
                  "hd 64 G 1 ring+window+softcap")])],
+        "granite-moe-1b-a400m": [
+            flash_cases(gen, "granite-moe-1b-a400m", [
+                (1, 4, 2, 130, 130, 64, True, None, None, "hd 64 G 2 S 130"),
+                (1, 4, 2, 16, 200, 64, False, None, None,
+                 "hd 64 bidir Sq 16 Skv 200")]),
+            decode_cases(gen, "granite-moe-1b-a400m", "partly filled", [
+                (2, 2, 2, 77, 64, None, None, "hd 64 G 2 ragged")])],
         "recurrentgemma-2b": [
             flash_cases(gen, "recurrentgemma-2b", [
                 (1, 10, 1, 100, 100, 256, True, 48, None,
@@ -874,12 +1026,17 @@ def main():
     }
     phase_parity("granite-8b", 5)
     phase_parity("recurrentgemma-2b", 20)  # past the reduced window of 16
+    phase_parity("granite-moe-1b-a400m", 5)
+    phase_parity("olmoe-1b-7b", 5)
     for arch, entries in kernels.items():
         eng = phase_serve(arch, entries)
         phase_breakdown(eng)
+        if eng.cfg.moe is not None:
+            phase_moe_timing(eng)
         del eng  # free this path's weights before the next path's
         gc.collect()
         torch.cuda.empty_cache()
+    phase_launcher("granite-moe-1b-a400m")
     phase_device_time([e for es in kernels.values() for e in es])
     print(smi)
     print(json.dumps({"kernels": [e for es in kernels.values()

@@ -1,6 +1,7 @@
 """Building blocks of the decoder (PyTorch port of
-``repro.models.layers``: global and local attention, the gated MLP and
-the RG-LRU recurrent block).
+``repro.models.layers``: global and local attention with optional
+QK-norm, the gated MLP, the capacity-routed MoE layer and the RG-LRU
+recurrent block).
 
 Each block keeps the reference's three parts: ``*_template(cfg)`` (a
 flat dict ``name -> ParamSpec``), ``*_apply`` (full sequence) and
@@ -177,6 +178,9 @@ def attn_template(cfg: ArchConfig):
         t["bq"] = ParamSpec((H * hd,), ("heads",), init="zeros")
         t["bk"] = ParamSpec((K * hd,), ("kv_heads",), init="zeros")
         t["bv"] = ParamSpec((K * hd,), ("kv_heads",), init="zeros")
+    if cfg.qk_norm:
+        t["q_norm"] = ParamSpec((hd,), (None,), init="zeros")
+        t["k_norm"] = ParamSpec((hd,), (None,), init="zeros")
     return t
 
 
@@ -189,6 +193,9 @@ def _project_qkv(p, cfg, x):
     q = q.reshape(B, S, K, H // K, hd)
     k = k.reshape(B, S, K, hd)
     v = v.reshape(B, S, K, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
 
 
@@ -279,6 +286,116 @@ def mlp_apply(p, x):
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(g.to(f32), approximate="tanh").to(x.dtype) * u
     return dot(h, p["wo"])
+
+
+# --------------------------------------------------------------------------
+# mixture of experts (granite-moe, olmoe)
+# --------------------------------------------------------------------------
+
+def moe_template(cfg: ArchConfig):
+    D = cfg.d_model
+    e = cfg.moe
+    return {
+        "router": ParamSpec((D, e.n_experts), ("embed", None)),
+        "wi": ParamSpec((e.n_experts, D, 2 * e.d_expert_ff),
+                        ("experts", "embed", "ff")),
+        "wo": ParamSpec((e.n_experts, e.d_expert_ff, D),
+                        ("experts", "ff", "embed")),
+    }
+
+
+def moe_route(p, cfg, xg):
+    """The reference's routing of token groups xg (G, gs, D).
+
+    Returns (probs, top_p, top_e, pos, cap, counts): probs (G, gs, E)
+    fp32; top_p (G, gs, k), renormalized, and top_e (G, gs, k); pos
+    (G, gs, k), each (token, slot)'s place in its expert's queue,
+    counted in the group's (s, k)-flattened order; cap, the queue length
+    (a slot with pos >= cap is dropped); counts (E,) int32, the slots
+    routed to each expert over all groups, dropped ones included.
+
+    The queue places come from an (G, E, gs*k) boolean, not from the
+    reference's (G, gs, k, E, C) one-hot, scanned as one flat cumsum
+    (a 1-D scan runs in parallel on the card, where a scan along a
+    16384-long middle axis of 32 columns runs serially), from which
+    each (group, expert) row subtracts its own start.
+    """
+    e = cfg.moe
+    G, gs, _ = xg.shape
+    E, k = e.n_experts, e.top_k
+    logits = torch.matmul(xg.to(f32), p["router"].to(f32))
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, k, dim=-1)
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    cap = max(int(e.capacity_factor * gs * k / E), 1)
+    flat = top_e.reshape(G, 1, gs * k)
+    onehot = (flat == torch.arange(E, device=xg.device)[:, None]).to(
+        torch.int32)  # (G, E, gs*k)
+    before = onehot.flatten().cumsum(0, dtype=torch.int32).view(
+        onehot.shape) - onehot  # exclusive, over all rows so far
+    before = before - before[..., :1]  # from each row's own start
+    pos = before.gather(1, flat).reshape(G, gs, k)
+    counts = onehot.sum((0, 2), dtype=torch.int32)
+    return probs, top_p, top_e, pos, cap, counts
+
+
+def _dot_f32(a, b):
+    """Batched a @ b with an fp32 result (the reference's
+    preferred_element_type=f32): fp32 accumulation of bf16 products,
+    not rounded back to bf16."""
+    if a.dtype == f32:
+        return torch.matmul(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=f32)
+    return torch.matmul(a.to(f32), b.to(f32))
+
+
+def moe_apply(p, cfg, x, group_size=None):
+    """Switch-style capacity-routed MoE (the reference's grouped one-hot
+    dispatch), computed from indices.
+
+    x: (B, S, D).  Returns (y, aux): aux carries the router load (the
+    per-expert share of the routed (token, slot) pairs, dropped ones
+    included: the Level-B utilization signal) and the load-balancing
+    loss.  Kept rows are gathered into an (E, G*C, D) buffer (zeros in
+    empty slots), both expert products run batched over E, and each
+    token sums its kept slots' outputs weighted by top_p in fp32.  The
+    gather equals the reference's one-hot dispatch exactly (a one-hot
+    sum has one term); only the combine's summation order differs.
+    """
+    e = cfg.moe
+    B, S, D = x.shape
+    N, E, k = B * S, e.n_experts, e.top_k
+    gs = min(group_size or cfg.moe_group, N)
+    G = N // gs
+    xg = x.reshape(G, gs, D)
+    probs, top_p, top_e, pos, cap, counts = moe_route(p, cfg, xg)
+
+    # flat (e, g, c) slot of each (token, k); dropped ones go to a spare
+    # row past the E*G*C buffer
+    grp = torch.arange(G, device=x.device)[:, None, None]
+    keep = pos < cap
+    slot = torch.where(keep, (top_e * G + grp) * cap + pos, E * G * cap)
+    slot = slot.reshape(N * k)
+    tok = torch.arange(N * k, device=x.device) // k
+    buf = x.new_zeros((E * G * cap + 1, D))
+    buf[slot] = x.reshape(N, D)[tok]
+    xin = buf[:-1].view(E, G * cap, D)
+
+    gu = torch.matmul(xin, p["wi"])  # x.dtype, fp32 accumulation
+    g, u = gu.chunk(2, dim=-1)
+    h = F.gelu(g.to(f32), approximate="tanh").to(x.dtype) * u
+    hout = _dot_f32(h, p["wo"]).view(E * G * cap, D)
+
+    w = (top_p * keep).reshape(N, k, 1)  # 0 for a dropped slot
+    rows = hout[slot.clamp_max(E * G * cap - 1)].view(N, k, D)
+    y = (rows * w).sum(1).to(x.dtype)
+
+    load = counts.to(f32) / (N * k)
+    importance = probs.mean((0, 1))
+    aux = {"expert_load": load,
+           "moe_aux_loss": E * torch.sum(load * importance)}
+    return y.reshape(B, S, D), aux
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Decoder LM (PyTorch port of ``repro.models.model``, for configs whose
 layers are ``attn_global``, ``attn_local`` and ``rglru`` blocks, each
-with a gated MLP: the dense decoders and recurrentgemma).
+with a gated MLP or, where ``cfg.moe`` is set, a capacity-routed MoE
+layer: the dense decoders, recurrentgemma and the MoE decoders).
 
 Layers are grouped into periods as in the reference; parameters for
 each period position are stacked over ``n_periods`` (``layers/scan/
@@ -35,9 +36,8 @@ from repro_torch.models.layers import ParamSpec
 f32 = torch.float32
 
 # config flags the port does not implement (value -> unsupported)
-_UNSUPPORTED = ("window_pattern", "moe", "kv_quant", "encoder_layers",
-                "vision_tokens", "sandwich_norm", "qk_norm",
-                "learned_pos_embed")
+_UNSUPPORTED = ("window_pattern", "kv_quant", "encoder_layers",
+                "vision_tokens", "sandwich_norm", "learned_pos_embed")
 _KINDS = ("attn_global", "attn_local", "rglru")  # block kinds ported
 
 
@@ -99,7 +99,10 @@ def block_template(cfg: ArchConfig, kind: str):
         t["attn"] = L.attn_template(cfg)
     if cfg.d_ff > 0:
         t["ln2"] = norm()
-        t["mlp"] = L.mlp_template(cfg)
+        if cfg.moe is not None:
+            t["moe"] = L.moe_template(cfg)
+        else:
+            t["mlp"] = L.mlp_template(cfg)
     return t
 
 
@@ -138,21 +141,28 @@ def param_count(cfg: ArchConfig) -> int:
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device="cuda"):
+                device="cuda", *, blank_experts=False):
     """Random parameters drawn from ``generator`` on ``device``, directly
     in ``cfg.tdtype`` and one stacked layer slice at a time (no fp32
-    transient of a full stacked weight).
+    transient of a full stacked weight).  ``blank_experts`` allocates the
+    experts' ``moe/wi`` and ``moe/wo`` as zeros and draws nothing for
+    them (the serving engine materializes them per expert).
 
     A stacked weight's std comes from its per-layer fan-in; the
     reference's stacked specs take the stack depth as fan-in.  Seeded
     inits are never compared across frameworks: weights cross through
     ``repro_torch.models.convert``.
     """
-    def build(tmpl, stacked):
+    def build(tmpl, stacked, path=""):
         out = {}
         for k, s in tmpl.items():
             if isinstance(s, dict):
-                out[k] = build(s, stacked)
+                out[k] = build(s, stacked, f"{path}{k}/")
+                continue
+            if blank_experts and path.endswith("moe/") and k in ("wi",
+                                                                 "wo"):
+                out[k] = torch.zeros(s.shape, dtype=cfg.tdtype,
+                                     device=device)
                 continue
             t = torch.empty(s.shape, dtype=cfg.tdtype, device=device)
             if stacked:
@@ -204,9 +214,10 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device="cuda"):
 
 def _apply_block(p, cfg, kind, x, positions, *, cache=None, decode=False,
                  make_cache=0):
-    """One residual block.  Returns (x, cache): in decode, the attention
-    cache updated in place or the RG-LRU block's new state; in prefill,
-    the new cache when ``make_cache`` > 0."""
+    """One residual block.  Returns (x, cache, aux): in decode, the
+    attention cache updated in place or the RG-LRU block's new state; in
+    prefill, the new cache when ``make_cache`` > 0; aux, the MoE layer's
+    router load and loss ({} without one)."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "rglru":
         if decode:
@@ -221,10 +232,23 @@ def _apply_block(p, cfg, kind, x, positions, *, cache=None, decode=False,
         y, cache = L.attn_apply(p["attn"], cfg, h, positions, kind=kind,
                                 make_cache=make_cache)
     x = x + y
-    if "mlp" in p:
+    aux = {}
+    if "mlp" in p or "moe" in p:
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(p["mlp"], h)
-    return x, cache
+        if "moe" in p:
+            y, aux = L.moe_apply(p["moe"], cfg, h)
+        else:
+            y = L.mlp_apply(p["mlp"], h)
+        x = x + y
+    return x, cache, aux
+
+
+def _zero_aux(cfg, device):
+    if cfg.moe is None:
+        return {}
+    return {"expert_load": torch.zeros((cfg.moe.n_experts,), dtype=f32,
+                                       device=device),
+            "moe_aux_loss": torch.zeros((), dtype=f32, device=device)}
 
 
 def _run_layers(cfg, params_l, x, positions, *, caches=None, decode=False,
@@ -235,24 +259,27 @@ def _run_layers(cfg, params_l, x, positions, *, caches=None, decode=False,
     Decode updates ``caches`` in place (an RG-LRU block's new state is
     copied into its stacked slice); prefill with ``make_cache`` > 0
     writes each layer's cache into a fresh stacked cache.  Returns
-    (x, caches or None).
+    (x, caches or None, aux summed over the layers).
     """
     if make_cache:
         caches = init_cache(cfg, x.shape[0], make_cache, x.device)
+    aux_tot = _zero_aux(cfg, x.device)
     for group, pattern, n in _groups(cfg):
         for t in range(n):
             for i, kind in enumerate(pattern):
                 p_t = _index(params_l[group][f"pos{i}"], t)
                 c_t = _index(caches[group][f"pos{i}"], t) if caches \
                     else None
-                x, nc = _apply_block(p_t, cfg, kind, x, positions,
-                                     cache=c_t, decode=decode,
-                                     make_cache=make_cache)
+                x, nc, aux = _apply_block(p_t, cfg, kind, x, positions,
+                                          cache=c_t, decode=decode,
+                                          make_cache=make_cache)
+                if not decode:  # decode_step returns no aux
+                    aux_tot = {a: v + aux[a] for a, v in aux_tot.items()}
                 if decode or make_cache:
                     for key, val in nc.items():
                         if val is not c_t[key]:  # written in place already
                             c_t[key].copy_(val)
-    return x, (caches if (decode or make_cache) else None)
+    return x, (caches if (decode or make_cache) else None), aux_tot
 
 
 def _index(tree, t):
@@ -292,10 +319,10 @@ def forward(cfg: ArchConfig, params, tokens, *, make_cache=0):
     x = embed_tokens(cfg, params, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    x, caches = _run_layers(cfg, params["layers"], x, positions,
-                            make_cache=make_cache)
+    x, caches, aux = _run_layers(cfg, params["layers"], x, positions,
+                                 make_cache=make_cache)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, caches, {}
+    return x, caches, aux
 
 
 def prefill(cfg: ArchConfig, params, tokens, *, cache_len=None):
@@ -320,7 +347,7 @@ def decode_step(cfg: ArchConfig, params, token, pos, caches):
     _check_range(pos, min(slots) if slots else 2**31 - 1,
                  "decode position")
     x = embed_tokens(cfg, params, token)
-    x, caches = _run_layers(cfg, params["layers"], x, pos, caches=caches,
-                            decode=True)
+    x, caches, _ = _run_layers(cfg, params["layers"], x, pos,
+                               caches=caches, decode=True)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _head(cfg, params, x[:, 0]), caches

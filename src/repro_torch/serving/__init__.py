@@ -1,5 +1,5 @@
 """Level-B model serving (PyTorch port of ``repro.serving``:
-``ServingEngine`` for dense configs and its components)."""
+``ServingEngine`` and its components)."""
 
 from repro_torch.serving.components import (  # noqa: F401
     Component, ComponentRegistry, LoadPolicy,

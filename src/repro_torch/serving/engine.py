@@ -1,13 +1,22 @@
 """Serverless serving engine with SLIMSTART-guided cold starts (PyTorch
-port of ``repro.serving.engine.ServingEngine``, dense configs).
+port of ``repro.serving.engine.ServingEngine``: dense, recurrent and MoE
+decoders).
 
 Cold-start anatomy (the Level-B "library loading"):
     import -> config -> weight materialization -> entry-point warm-up
 Each stage is a named ``Component``; the engine materializes the eager
 set per ``LoadPolicy``, serves requests (materializing lazy components
 on first use, exactly like a deferred import), and tracks per-entry
-invocations as the utilization signal for the profile-guided optimizer
-(``engine.report()`` -> ``LoadPolicy.from_report``).
+invocations + per-expert routing mass as the utilization signal for the
+profile-guided optimizer (``engine.report()`` ->
+``LoadPolicy.from_report``).
+
+An MoE model's experts are components of their own (``expert.<e>``,
+group ``experts``): ``weights.core`` leaves every expert's FF weights at
+zero, and an expert's builder draws its slice of every MoE layer in
+place.  As in the reference, a request's prefill runs before the experts
+it routed to are materialized, so a request that first routes to a cold
+expert is served with that expert's zero weights.
 
 Where the reference compiles each entry ahead of time
 (``jax.jit(...).lower(...).compile()``), the port's ``compile.<entry>``
@@ -19,6 +28,7 @@ component init.
 from __future__ import annotations
 
 import time
+import zlib
 from functools import partial
 from typing import Optional
 
@@ -58,6 +68,7 @@ class ServingEngine:
         self.max_len = max_len
         self.registry = ComponentRegistry()
         self.entry_counts: dict[str, int] = {}
+        self.expert_mass: Optional[np.ndarray] = None
         self._params = None
         self.cold_start_s: Optional[float] = None
         self._build_components()
@@ -65,12 +76,19 @@ class ServingEngine:
     # ------------------------------------------------------------ build
     def _build_components(self):
         reg = self.registry
+        moe = self.cfg.moe
 
         def weights_builder():
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
-            return init_params(self.cfg, gen, self.device)
+            # expert FF weights are materialized per expert instead
+            return init_params(self.cfg, gen, self.device,
+                               blank_experts=moe is not None)
 
         reg.add(Component("weights.core", "weights", weights_builder))
+        if moe is not None:
+            for e in range(moe.n_experts):
+                reg.add(Component(f"expert.{e}", "experts",
+                                  partial(self._expert_builder, e)))
         # per-entry warm-ups (the Level-B analogue of importing the
         # module that serves this handler)
         for entry in self.entries():
@@ -79,6 +97,32 @@ class ServingEngine:
 
     def entries(self) -> list[str]:
         return ["generate", "score"]  # score: rarely-hit teacher forcing
+
+    # ---------------------------------------------------------- experts
+    def _expert_builder(self, e: int):
+        """Draw expert e's FF weights (normal / sqrt(fan-in)) into its
+        slice of every MoE layer's stacked ``wi``/``wo``, in place.
+
+        Each leaf's draw comes from a generator keyed by (seed, e, layer
+        path, leaf) through crc32, so it is the same in every process
+        (the reference keys it by Python's ``hash``, which is not)."""
+        params = self._ensure_params()
+
+        def visit(tree, path=""):
+            for k, v in sorted(tree.items()):
+                if k == "moe":
+                    for w in ("wi", "wo"):
+                        key = zlib.crc32(f"{self.seed}/{e}/{path}/{w}"
+                                         .encode())
+                        gen = torch.Generator(device=self.device)
+                        gen.manual_seed(key)
+                        leaf = v[w]  # (n_stack, E, fan_in, out)
+                        leaf[:, e].normal_(0.0, leaf.shape[2] ** -0.5,
+                                           generator=gen)
+                elif isinstance(v, dict):
+                    visit(v, f"{path}/{k}")
+        visit(params["layers"])
+        return e
 
     # ------------------------------------------------------ compilation
     def _compile_entry(self, entry: str):
@@ -95,15 +139,16 @@ class ServingEngine:
             return {"score": score_fn}
 
         def prefill_fn(params, tokens):
-            logits, caches, _ = prefill(cfg, params, tokens,
-                                        cache_len=self.max_len)
-            return logits.argmax(dim=-1).to(torch.int32), caches
+            logits, caches, aux = prefill(cfg, params, tokens,
+                                          cache_len=self.max_len)
+            nxt = logits.argmax(dim=-1).to(torch.int32)
+            return nxt, caches, aux.get("expert_load")
 
         def decode_fn(params, token, pos, caches):
             logits, caches = decode_step(cfg, params, token, pos, caches)
             return logits.argmax(dim=-1).to(torch.int32)[:, None], caches
 
-        nxt, caches = prefill_fn(params, toks)
+        nxt, caches, _ = prefill_fn(params, toks)
         pos = torch.full((self.B,), self.prefill_len, dtype=torch.int32,
                          device=self.device)
         decode_fn(params, nxt[:, None], pos, caches)
@@ -142,7 +187,9 @@ class ServingEngine:
             out = exes["score"](params, toks).cpu().numpy()
             return out, time.perf_counter() - t0
 
-        nxt, caches = exes["prefill"](params, toks)
+        nxt, caches, load = exes["prefill"](params, toks)
+        if load is not None:
+            self._account_experts(load.cpu().numpy())
         pos0 = toks.shape[1]
         out = [nxt]
         tok = nxt[:, None]
@@ -155,8 +202,33 @@ class ServingEngine:
         return result, time.perf_counter() - t0
 
     # ----------------------------------------- utilization / SLIMSTART
+    def _account_experts(self, load: np.ndarray):
+        """Routing mass -> expert Component.uses; materialize experts
+        that received traffic but are still cold (lazy loading)."""
+        if self.expert_mass is None:
+            self.expert_mass = np.zeros_like(load)
+        self.expert_mass += load
+        for e, mass in enumerate(load):
+            name = f"expert.{e}"
+            if name in self.registry and mass > 0:
+                comp = self.registry[name]
+                if not comp.ready:
+                    comp.get()  # deferred materialization on first route
+                else:
+                    comp.uses += 1
+
     def report(self) -> dict:
         rep = self.registry.report()
         rep["entry_counts"] = dict(self.entry_counts)
         rep["cold_start_s"] = self.cold_start_s
+        if self.expert_mass is not None:
+            tot = float(self.expert_mass.sum()) or 1.0
+            rep["expert_utilization"] = {
+                f"expert.{e}": round(float(m) / tot, 4)
+                for e, m in enumerate(self.expert_mass)}
+            # fold routing mass into component utilization rows
+            for row in rep["components"]:
+                if row["component"].startswith("expert."):
+                    row["utilization"] = rep["expert_utilization"].get(
+                        row["component"], 0.0)
         return rep

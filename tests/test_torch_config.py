@@ -36,7 +36,8 @@ def test_config_asdict_matches_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ["granite-8b", "qwen2.5-32b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b",
+                                  "granite-moe-1b-a400m", "olmoe-1b-7b"])
 def test_param_count_matches_reference(arch):
     assert t_param_count(tcfgs.get_config(arch)) == \
         j_param_count(jcfgs.get_config(arch))
@@ -55,6 +56,7 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch, repro_torch.configs, repro_torch.models\n"
         "import repro_torch.models.convert, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.ref, repro_torch.serving\n"
+        "import repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"

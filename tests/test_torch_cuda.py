@@ -24,6 +24,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.rglru_scan import (  # noqa: E402
     rglru_scan, rglru_scan_plain,
 )
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -68,6 +69,9 @@ def _rand(rng, shape, dtype, device):
     (1, 2, 1, 16, 200, 256, False, None, None, "bhsd"),
     (2, 8, 2, 200, 200, 128, True, None, None, "model"),
     (2, 10, 1, 130, 130, 256, True, 48, None, "model"),
+    # granite-moe: hd 64, G 2, its prefill shape and a ragged one
+    (4, 16, 8, 512, 512, 64, True, None, None, "model"),
+    (1, 4, 2, 130, 130, 64, True, None, None, "bhsd"),
 ])
 def test_flash_kernel_matches_plain(cuda, B, H, K, Sq, Skv, hd, causal,
                                     window, cap, layout, dtype):
@@ -164,6 +168,9 @@ def test_decode_kernel_rejects_misaligned_rows(cuda, which, dtype, hd):
     (2, 1, 10, 333, 256, 64, 50.0, True),
     (1, 4, 4, 1000, 128, 128, 30.0, True),
     (4, 1, 10, 2048, 256, 2048, None, True),
+    # granite-moe: hd 64, G 2, its decode shape and a ragged one
+    (4, 8, 2, 640, 64, None, None, False),
+    (2, 2, 2, 77, 64, None, None, False),
 ])
 def test_decode_kernel_matches_plain(cuda, B, K, G, S, hd, window, cap,
                                      ring, dtype):
@@ -311,7 +318,9 @@ def test_rglru_kernel_unaligned_start(cuda, dtype):
 
 
 @pytest.mark.parametrize("arch,n_dec", [("granite-8b", 5),
-                                        ("recurrentgemma-2b", 20)])
+                                        ("recurrentgemma-2b", 20),
+                                        ("granite-moe-1b-a400m", 5),
+                                        ("olmoe-1b-7b", 5)])
 def test_reduced_model_cuda_matches_cpu(cuda, arch, n_dec):
     """recurrentgemma decodes past its window of 16, so the ring wraps."""
     cfg = get_reduced(arch)
@@ -324,10 +333,13 @@ def test_reduced_model_cuda_matches_cpu(cuda, arch, n_dec):
     B, T0 = 2, 8
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab, (B, T0 + n_dec)).astype(np.int32))
-    lc, cc, _ = M.prefill(cfg, params, toks[:, :T0], cache_len=T0 + n_dec)
-    lg, cg, _ = M.prefill(cfg, gparams, toks[:, :T0].to(cuda),
-                          cache_len=T0 + n_dec)
+    lc, cc, ac = M.prefill(cfg, params, toks[:, :T0], cache_len=T0 + n_dec)
+    lg, cg, ag = M.prefill(cfg, gparams, toks[:, :T0].to(cuda),
+                           cache_len=T0 + n_dec)
     torch.testing.assert_close(lg.cpu(), lc, rtol=2e-3, atol=2e-3)
+    assert ag.keys() == ac.keys()
+    for k in ac:  # MoE: router load and loss
+        torch.testing.assert_close(ag[k].cpu(), ac[k], rtol=1e-5, atol=1e-5)
     for i in range(n_dec):
         pos = torch.full((B,), T0 + i, dtype=torch.int32)
         tok = toks[:, T0 + i:T0 + i + 1]
@@ -345,3 +357,31 @@ def test_reduced_model_cuda_matches_cpu(cuda, arch, n_dec):
     for name, got in leaves(cg):
         torch.testing.assert_close(got.cpu(), want[name], rtol=2e-3,
                                    atol=2e-3, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,group", [(2, 16, 8), (4, 1, None),
+                                       (4, 512, None)])
+def test_moe_apply_cuda_matches_cpu(cuda, B, S, group, dtype):
+    """granite-moe's MoE layer at full width (d_model 1024, 32 experts,
+    top-8, d_ff 512) with capacity 1.25: the same routing (experts and
+    queue places) on the card as on the CPU, and the output within the
+    kernel tolerances (the bf16 card path takes the fp32-output bmm)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("granite-moe-1b-a400m").with_(
+        dtype="float32" if dtype == torch.float32 else "bfloat16")
+    rng = np.random.default_rng(B * S)
+    p = {k: (_rand(rng, s.shape, torch.float32, "cpu") / s.shape[-2] ** 0.5)
+         .to(dtype) for k, s in L.moe_template(cfg).items()}
+    x = _rand(rng, (B, S, cfg.d_model), dtype, "cpu")
+    gp = {k: v.to(cuda) for k, v in p.items()}
+    gs = min(group or cfg.moe_group, B * S)
+    want = L.moe_route(p, cfg, x.reshape(-1, gs, cfg.d_model))
+    got = L.moe_route(gp, cfg, x.to(cuda).reshape(-1, gs, cfg.d_model))
+    assert torch.equal(got[2].cpu(), want[2])  # top_e
+    assert torch.equal(got[3].cpu(), want[3])  # queue places
+    yc, ac = L.moe_apply(p, cfg, x, group_size=group)
+    yg, ag = L.moe_apply(gp, cfg, x.to(cuda), group_size=group)
+    assert yg.dtype == dtype
+    torch.testing.assert_close(yg.cpu().float(), yc.float(), **TOL[dtype])
+    torch.testing.assert_close(ag["expert_load"].cpu(), ac["expert_load"])

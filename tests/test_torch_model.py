@@ -1,6 +1,15 @@
-"""PyTorch port: the dense decoder against ``repro.models`` on reduced
-configs, with the reference's weights carried over (JAX init_params ->
-numpy -> repro_torch.models.convert), plus the numerics the port pins.
+"""PyTorch port: the decoders (dense, recurrent, MoE) against
+``repro.models`` on reduced configs, with the reference's weights carried
+over (JAX init_params -> numpy -> repro_torch.models.convert), plus the
+numerics the port pins.
+
+Deliberate differences from the reference (the first and the last are
+pinned by tests below):
+- out-of-range cache slots and token ids raise instead of clamping;
+- a stacked weight's init std uses its per-layer fan-in;
+- the serving engine keys each expert's init by crc32 of (seed, expert,
+  layer path, leaf), where the reference folds in Python's ``hash``,
+  which changes from process to process.
 
 Tolerance 2e-3, the reference's own (tests/test_archs.py).  On the CPU
 the port's attention runs the kernels' plain versions.
@@ -26,7 +35,9 @@ from repro_torch.models.convert import (  # noqa: E402
 
 TOL = dict(rtol=2e-3, atol=2e-3)
 ARCHS = ["granite-8b", "qwen2.5-32b",  # qwen: qkv bias, untied head
-         "recurrentgemma-2b"]  # rglru + attn_local, rem_scan group
+         "recurrentgemma-2b",  # rglru + attn_local, rem_scan group
+         "granite-moe-1b-a400m",  # MoE, tied head
+         "olmoe-1b-7b"]  # MoE with qk_norm, untied head
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -66,25 +77,36 @@ def test_converted_tree_matches_template(pair):
         {k: (tuple(v.shape), v.dtype) for k, v in tl.items()}
 
 
+def _check_aux(got, want, what):
+    """MoE aux (router load summed over layers, load-balancing loss);
+    both {} for a model without MoE."""
+    assert got.keys() == want.keys(), what
+    for k in want:
+        np.testing.assert_allclose(_np(got[k]), _np(want[k]), rtol=1e-5,
+                                   atol=1e-5, err_msg=f"{what}: {k}")
+
+
 def test_forward_prefill_decode_match_reference(pair):
     arch, jcfg, tcfg, jparams, tparams = pair
-    B, T0, n_dec = 2, 8, 5
+    B, T0, n_dec = 2, 8, 6
     total = T0 + n_dec
     toks = np.random.default_rng(2).integers(
         0, jcfg.vocab, (B, total)).astype(np.int32)
 
-    jh, _, _ = JM.forward(jcfg, jparams, jnp.asarray(toks))
-    th, _, _ = TM.forward(tcfg, tparams, torch.from_numpy(toks))
+    jh, _, jaux = JM.forward(jcfg, jparams, jnp.asarray(toks))
+    th, _, taux = TM.forward(tcfg, tparams, torch.from_numpy(toks))
     np.testing.assert_allclose(_np(th), _np(jh), **TOL,
                                err_msg=f"{arch}: forward hidden")
+    _check_aux(taux, jaux, f"{arch}: forward aux")
 
-    jl, jc, _ = JM.prefill(jcfg, jparams, jnp.asarray(toks[:, :T0]),
-                           cache_len=total)
-    tl, tc, _ = TM.prefill(tcfg, tparams, torch.from_numpy(toks[:, :T0]),
-                           cache_len=total)
+    jl, jc, jaux = JM.prefill(jcfg, jparams, jnp.asarray(toks[:, :T0]),
+                              cache_len=total)
+    tl, tc, taux = TM.prefill(tcfg, tparams, torch.from_numpy(toks[:, :T0]),
+                              cache_len=total)
     assert tl.dtype == torch.float32
     np.testing.assert_allclose(_np(tl), _np(jl), **TOL,
                                err_msg=f"{arch}: prefill logits")
+    _check_aux(taux, jaux, f"{arch}: prefill aux")
     jcn = dict(_leaves(jax.tree.map(np.asarray, jc)))
     tcn = dict(_leaves(to_numpy_tree(tc)))
     assert jcn.keys() == tcn.keys()
@@ -336,9 +358,41 @@ def test_bf16_head_gives_fp32_logits():
     assert TM._head(tcfg, params, h).dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "granite-moe-1b-a400m",
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-27b",
                                   "whisper-large-v3", "pixtral-12b",
                                   "xlstm-350m"])
 def test_unported_configs_raise(arch):
     with pytest.raises(NotImplementedError):
         TM.model_template(t_reduced(arch))
+
+
+def test_expert_init_keyed_stably_across_processes():
+    """The engine's per-expert draws depend on (seed, expert, layer path,
+    leaf) only: the same in a process with another hash seed, where the
+    reference's ``hash``-keyed draws would change."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    code = (
+        "import torch\n"
+        "from repro_torch.configs import get_reduced\n"
+        "from repro_torch.serving import LoadPolicy, ServingEngine\n"
+        "eng = ServingEngine(get_reduced('granite-moe-1b-a400m'),\n"
+        "    policy=LoadPolicy(lazy_groups=frozenset({'compile'})),\n"
+        "    device='cpu')\n"
+        "eng.cold_start()\n"
+        "m = eng._params['layers']['scan']['pos0']['moe']\n"
+        "print(repr([m[w][:, e].double().sum().item()\n"
+        "            for e in range(8) for w in ('wi', 'wo')]))\n")
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    sums = []
+    for hash_seed in ("1", "2"):
+        env = dict(os.environ, PYTHONPATH=src, PYTHONHASHSEED=hash_seed)
+        out = subprocess.run([sys.executable, "-c", code], env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        sums.append(out.stdout.strip())
+    assert sums[0] == sums[1]
+    per_expert = eval(sums[0])
+    assert len(set(per_expert)) == len(per_expert)  # a draw per leaf

@@ -1,6 +1,15 @@
 """PyTorch port: ServingEngine against ``repro.serving.ServingEngine``
-on reduced configs (dense granite-8b and hybrid recurrentgemma-2b), on
-the CPU (device="cpu")."""
+on reduced configs (dense granite-8b, hybrid recurrentgemma-2b and MoE
+granite-moe-1b-a400m), on the CPU (device="cpu").
+
+A reference quirk the port keeps, for parity: a request's prefill runs
+before the experts it routed to are materialized, so under a lazy
+``experts`` policy the first request that routes to a cold expert is
+served (its prefill, and its first token) with that expert's zero
+weights; its decode steps then see the drawn weights.
+``test_moe_generate_gives_reference_tokens[lazy]`` holds the two engines
+to the same tokens through it.
+"""
 
 import pytest
 
@@ -10,7 +19,9 @@ import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.configs import get_reduced as j_reduced  # noqa: E402
+from repro.serving import LoadPolicy as JPolicy  # noqa: E402
 from repro.serving import ServingEngine as JEngine  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs import get_reduced as t_reduced  # noqa: E402
 from repro_torch.models.convert import from_numpy_tree  # noqa: E402
 from repro_torch.serving import ServingEngine, LoadPolicy  # noqa: E402
@@ -94,4 +105,131 @@ def test_engine_without_cuda_raises(monkeypatch):
 
 def test_engine_rejects_unported_config():
     with pytest.raises(NotImplementedError):
-        ServingEngine(t_reduced("granite-moe-1b-a400m"), device="cpu")
+        ServingEngine(t_reduced("whisper-large-v3"), device="cpu")
+
+
+# ----------------------------------------------------------------- MoE
+LAZY_EXPERTS = dict(lazy_groups=frozenset({"experts"}))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "olmoe-1b-7b"])
+def test_full_width_moe_engine_constructs(arch):
+    eng = ServingEngine(get_config(arch), device="cpu")
+    n = get_config(arch).moe.n_experts
+    assert [c.name for c in eng.registry.values()
+            if c.group == "experts"] == [f"expert.{e}" for e in range(n)]
+    assert not any(c.ready for c in eng.registry.values())
+
+
+@pytest.fixture(scope="module")
+def moe_engine():
+    """The port's twin of tests/test_serving.py's MoE engine, with the
+    experts deferred so that first routes materialize them."""
+    eng = ServingEngine(t_reduced("granite-moe-1b-a400m"),
+                        policy=LoadPolicy(**LAZY_EXPERTS), batch_size=1,
+                        prefill_len=8, max_len=32, device="cpu")
+    eng.cold_start()
+    return eng
+
+
+def test_moe_lazy_experts_materialize_on_route(moe_engine):
+    eng = moe_engine
+    cfg = eng.cfg
+    assert not any(eng.registry[f"expert.{e}"].ready
+                   for e in range(cfg.moe.n_experts))
+    moe = eng._params["layers"]["scan"]["pos0"]["moe"]
+    assert not moe["wi"].any() and not moe["wo"].any()  # blank at start
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (1, 8))
+    out, _ = eng.serve("generate", toks, max_new_tokens=4)
+    assert out.shape == (1, 4)
+    rep = eng.report()
+    assert "expert_utilization" in rep
+    util = rep["expert_utilization"]
+    assert abs(sum(util.values()) - 1.0) < 1e-2
+    routed = [e for e, m in enumerate(eng.expert_mass) if m > 0]
+    assert routed
+    for e in range(cfg.moe.n_experts):
+        assert eng.registry[f"expert.{e}"].ready == (e in routed)
+        assert bool(moe["wi"][:, e].any()) == (e in routed)
+
+
+def test_moe_report_feeds_policy(moe_engine):
+    rep = moe_engine.report()
+    pol = LoadPolicy.from_report(rep)
+    assert isinstance(pol.lazy_names, frozenset)
+    for row in rep["components"]:
+        if row["component"].startswith("expert."):
+            assert row["utilization"] == \
+                rep["expert_utilization"][row["component"]]
+        if row["utilization"] < 0.02 and row["init_s"] > 0:
+            assert row["component"] in pol.lazy_names
+
+
+@pytest.fixture(scope="module")
+def moe_reference_weights():
+    """The reference engine's weights after an eager cold start (every
+    expert drawn), as numpy."""
+    jeng = JEngine(j_reduced("granite-moe-1b-a400m"), batch_size=2,
+                   prefill_len=8, max_len=24)
+    jeng.cold_start()
+    return jax.tree.map(np.asarray, jeng._params)
+
+
+def _carry_moe_weights(teng, np_full):
+    """Swap the port's weights.core builder (the reference's tree with the
+    experts blank) and its expert.<e> builders (each copies expert e's
+    slices from the reference's drawn tree)."""
+    def blank(tree, moe=False):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = blank(v, k == "moe")
+            else:
+                out[k] = np.zeros_like(v) if moe and k != "router" else v
+        return out
+
+    def expert(e):
+        def visit(t_tree, np_tree):
+            for k, v in t_tree.items():
+                if k == "moe":
+                    for w in ("wi", "wo"):
+                        v[w][:, e] = torch.from_numpy(
+                            np.array(np_tree[k][w][:, e]))
+                elif isinstance(v, dict):
+                    visit(v, np_tree[k])
+        visit(teng._params["layers"], np_full["layers"])
+        return e
+
+    teng.registry["weights.core"].build = \
+        lambda: from_numpy_tree(blank(np_full), "cpu")
+    for e in range(teng.cfg.moe.n_experts):
+        teng.registry[f"expert.{e}"].build = lambda e=e: expert(e)
+
+
+@pytest.mark.parametrize("policy", ["eager", "lazy"])
+def test_moe_generate_gives_reference_tokens(moe_reference_weights,
+                                             policy):
+    """Greedy tokens and routing mass of two requests, the reference's
+    engine against the port's on the reference's weights.  Under the
+    lazy policy both serve the first request's prefill with zero experts
+    (the reference's order; see the module docstring)."""
+    kw = dict(batch_size=2, prefill_len=8, max_len=24)
+    jeng = JEngine(j_reduced("granite-moe-1b-a400m"), policy=(
+        JPolicy(**LAZY_EXPERTS) if policy == "lazy" else None), **kw)
+    teng = ServingEngine(t_reduced("granite-moe-1b-a400m"), policy=(
+        LoadPolicy(**LAZY_EXPERTS) if policy == "lazy" else None),
+        device="cpu", **kw)
+    _carry_moe_weights(teng, moe_reference_weights)
+    jeng.cold_start()
+    teng.cold_start()
+    assert [c.ready for c in teng.registry.values()] == \
+        [c.ready for c in jeng.registry.values()]
+    rng = np.random.default_rng(5)
+    for _ in range(2):
+        toks = rng.integers(0, jeng.cfg.vocab, (2, 8))
+        want, _ = jeng.serve("generate", toks, max_new_tokens=6)
+        got, _ = teng.serve("generate", toks, max_new_tokens=6)
+        np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(teng.expert_mass, jeng.expert_mass)
+    assert [c.ready for c in teng.registry.values()] == \
+        [c.ready for c in jeng.registry.values()]
