@@ -17,53 +17,74 @@ Phases, each raising on failure (the script then exits non-zero):
               64, 128 and 256 of both kernels have theirs (they run on the
               tensor cores, fed by asynchronous copies);
 3. kernels -- hold each kernel against its plain PyTorch version on the
-              card, at the shapes of the three main paths -- granite-8b
+              card, at the shapes of the five main paths -- granite-8b
               (batch 4, prefill 512, cache 640, hd 128, G 4),
               recurrentgemma-2b (batch 4, prefill 2048, window 2048,
-              hd 256, G 10 over one kv head; RG-LRU (4, 2048, 2560)) and
+              hd 256, G 10 over one kv head; RG-LRU (4, 2048, 2560)),
               granite-moe-1b-a400m (batch 4, prefill 512, cache 640,
-              hd 64, G 2) --
+              hd 64, G 2), pixtral-12b (batch 4, a 768-token vision
+              prefill, 896 cache slots, hd 128, G 4) and whisper-large-v3
+              (batch 4, hd 64, G 1: the encoder over 1500 frames with no
+              mask, the decoder's causal 224-token prefill, cross
+              attention from 224 queries over 1500 frames, self decode
+              over the 448-slot cache and cross decode over the 1500
+              all-valid slots) --
               and at small windowed / softcapped / ragged (S 130, 200
               against 64- and 128-key tiles) / bidirectional / ring-buffer
-              shapes, in bf16 (tolerance 3e-2; decode's 2e-2 relative
-              and 5e-3 absolute, held to its outputs' scale) and fp32
-              (2e-5); time kernel, plain version and one PyTorch
-              library call where one computes the same function
+              / all-valid shapes, in bf16 (tolerance 3e-2; decode's and
+              unmasked flash's 2e-2 relative and 5e-3 absolute, held to
+              their outputs' scale) and fp32 (2e-5); time kernel,
+              plain version and one PyTorch library call where one
+              computes the same function
               (scaled_dot_product_attention, a yardstick the port never
               calls; none for the RG-LRU scan) with CUDA events (``ms``:
               includes the wrapper's host path where it is the longer);
 4. parity  -- reduced() granite-8b, recurrentgemma-2b, granite-moe-1b-
-              a400m and olmoe-1b-7b in fp32: the CUDA model (kernels)
-              against the CPU model (plain versions) on the same params:
-              prefill logits, every cache leaf, the MoE router load and
-              loss, and decode steps (recurrentgemma's run past its
-              window of 16, so the ring wraps), 2e-3;
+              a400m, olmoe-1b-7b, pixtral-12b and whisper-large-v3 in
+              fp32: the CUDA model (kernels) against the CPU model (plain
+              versions) on the same params and random extras (patch
+              embeddings, encoder frames): prefill logits, every cache
+              leaf (whisper's cross_k/cross_v too), the MoE router load
+              and loss, the encoder's output, and decode steps
+              (recurrentgemma's run past its window of 16, so the ring
+              wraps), 2e-3;
 5. serve   -- the main paths, one after the other, each engine freed
               before the next: ServingEngine for full-width granite-8b
               (36 layers, d_model 4096), recurrentgemma-2b (26 layers,
-              d_model 2560) and granite-moe-1b-a400m (24 layers, d_model
-              1024, 32 experts top-8), random weights from a seed;
-              cold_start(), 3 ``generate`` requests of 16 new tokens and
-              1 ``score`` request each, with the launch counters set to 0
-              just before each path and read just after;
-5b. launcher -- granite-moe-1b-a400m through
-              ``repro_torch.launch.serve.run_service`` at the same
+              d_model 2560), granite-moe-1b-a400m (24 layers, d_model
+              1024, 32 experts top-8), pixtral-12b (40 layers, d_model
+              5120) and whisper-large-v3 (32 + 32 layers, d_model 1280),
+              random weights from a seed; cold_start(), then every entry:
+              3 ``generate`` requests of 16 new tokens, 2 of
+              ``vision_generate`` / ``transcribe`` with random patch
+              embeddings / frames from a seed, and 1 ``score`` request,
+              with the launch counters set to 0 just before each path and
+              read just after (counted per entry: a prefill or forward
+              launches flash once per attention layer, cross-attention
+              layer and encoder layer, a decode step decode once per
+              attention and cross-attention layer);
+5b. launcher -- the reference bench's archs (granite-moe-1b-a400m,
+              whisper-large-v3, pixtral-12b) through
+              ``repro_torch.launch.serve.run_service`` at their full-width
               shapes, once per policy (eager, lazy, slimstart from the
               eager run's report) on the bench's skewed workload of 24
               requests: cold start by group, deferred components, the
               first hot request's latency, the trace's end-to-end time;
 6. breakdown -- for information, after each path: prefill and
               decode-step times, and a torch.profiler trace of one
-              request (device busy share, kernel time by kind); for
-              granite-moe also one ``moe_apply`` alone at the prefill
-              (4 x 512) and decode (4 x 1) shapes, CUDA events;
+              request (device busy share, kernel time by kind): a
+              ``generate``, or on pixtral and whisper a ``vision_generate``
+              / ``transcribe`` with random extras; for granite-moe also
+              one ``moe_apply`` alone at the prefill (4 x 512) and decode
+              (4 x 1) shapes, CUDA events;
 7. device_ms -- each kernel's device time a call under torch.profiler
               (``device_ms``) at phase 3's timed shapes, taken last so
               that no profiler session of it comes before phases 5 and
               6.
 
-It prints one JSON line with an entry per kernel and configuration
-(``{"kernels": [...]}``) and ends with ``{"ok": true, "device": {...}}``.
+It prints each phase's wall time, one JSON line with an entry per kernel
+and configuration (``{"kernels": [...]}``), and ends with ``{"ok": true,
+"device": {...}}``.
 Without CUDA, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
 """
@@ -87,20 +108,29 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": dict(rtol=3e-2, atol=3e-2),
        "float32": dict(rtol=2e-5, atol=2e-5)}
-# decode's outputs are averages over many slots, |o| ~ sqrt(e / n_valid)
-# (0.036 at recurrentgemma-2b's 2048 slots), so its bf16 limit is held to
-# the output's scale: a split of the combine read stale or left out
-# moves o by ~0.01
-DECODE_BF16_TOL = dict(rtol=2e-2, atol=5e-3)
+# decode's outputs, and those of flash with no mask, are averages over
+# many keys, |o| ~ sqrt(e / n_keys) (0.036 at recurrentgemma-2b's 2048
+# slots, 0.043 at whisper's 1500 frames), so their bf16 limit is held to
+# the output's scale: a split of the combine read stale or left out, or
+# a key tile lost, moves o by ~0.01
+AVG_BF16_TOL = dict(rtol=2e-2, atol=5e-3)
 MODEL_TOL = dict(rtol=2e-3, atol=2e-3)
-# the main paths: batch, prompt length, cache length (max_len), new tokens
+# the main paths: batch, prompt length, max_len (the cache holds max_len
+# and the vision prefix), new tokens
 PATHS = {"granite-8b": dict(batch=4, prefill=512, cache=640, new=16),
          "recurrentgemma-2b": dict(batch=4, prefill=2048, cache=2064,
                                    new=16),
          "granite-moe-1b-a400m": dict(batch=4, prefill=512, cache=640,
-                                      new=16)}
-N_LAUNCHER_REQUESTS = 24  # the bench's workload length
-N_GENERATE = 3
+                                      new=16),
+         "pixtral-12b": dict(batch=4, prefill=512, cache=640, new=16),
+         # the decoder's 448-token text context (arXiv:2212.04356)
+         "whisper-large-v3": dict(batch=4, prefill=224, cache=448, new=16)}
+# the reference bench's archs and workload length
+LAUNCHER_ARCHS = ("granite-moe-1b-a400m", "whisper-large-v3", "pixtral-12b")
+N_LAUNCHER_REQUESTS = 24
+# requests per entry on each main path (entries an arch lacks are skipped)
+N_REQUESTS = {"generate": 3, "vision_generate": 2, "transcribe": 2,
+              "score": 1}
 L2_BYTES = 50 * 2**20
 
 
@@ -308,11 +338,14 @@ def _rand(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
-def _check(name, got, want, dtype_name, case):
+def _check(name, got, want, dtype_name, case, averaged=False):
+    """``averaged``: every output row averages over all its keys (flash
+    with no mask), as decode's do."""
     import torch
     err = (got.float() - want.float()).abs().max().item()
-    tol = DECODE_BF16_TOL if (name, dtype_name) == (
-        "decode_attention", "bfloat16") else TOL[dtype_name]
+    averaged = averaged or name == "decode_attention"
+    tol = AVG_BF16_TOL if averaged and dtype_name == "bfloat16" \
+        else TOL[dtype_name]
     torch.testing.assert_close(got.float(), want.float(), **tol,
                                msg=lambda m: f"{name} {case}: {m}")
     log(f"[kernels] {name} {dtype_name} {case}: max_abs_err {err:.3e} "
@@ -335,80 +368,91 @@ def _attn_shape(arch):
             cfg.window_size if local else None)
 
 
-def flash_cases(gen, arch, small):
-    """Flash kernel vs plain on the card at the path's prefill shape and
-    at ``small`` cases; returns the summary entry (timed in bf16)."""
+def _prefill_len(arch):
+    """Tokens in the path's longest prefill: the prompt and, on a vision
+    path, the vision prefix."""
+    from repro_torch.configs import get_config
+    return PATHS[arch]["prefill"] + get_config(arch).vision_tokens
+
+
+def flash_cases(gen, arch, small, *, sq=None, skv=None, causal=True,
+                what="prefill"):
+    """Flash kernel vs plain on the card at one of the path's shapes --
+    by default its longest causal prefill; ``sq``/``skv``/``causal`` name
+    another (whisper's encoder and cross attention) -- and at ``small``
+    cases; returns the summary entry (timed in bf16)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
-    spec = PATHS[arch]
-    B, S = spec["batch"], spec["prefill"]
+    B = PATHS[arch]["batch"]
+    Sq = sq or _prefill_len(arch)
+    Skv = skv or Sq
     H, K, hd, window = _attn_shape(arch)
     G = H // K
-    shape = f"B={B} H={H} K={K} S={S} hd={hd} window={window} causal"
+    shape = (f"{what}: B={B} H={H} K={K} Sq={Sq} Skv={Skv} hd={hd} "
+             f"window={window} {'causal' if causal else 'no mask'}")
+    kw = dict(causal=causal, window=window)
     main = {}
-    for dt, dn in _dtypes():
-        # main path shape, in model layout: q (B,S,K,G,hd), k/v (B,S,K,hd),
-        # handed to the kernel as transposed views, as attn_apply does
-        q5 = _rand(gen, (B, S, K, G, hd), dt)
-        k4 = _rand(gen, (B, S, K, hd), dt)
-        v4 = _rand(gen, (B, S, K, hd), dt)
-        args = (q5.reshape(B, S, H, hd).transpose(1, 2),
+
+    def model_layout(dt):
+        # in model layout: q (B,Sq,K,G,hd), k/v (B,Skv,K,hd), handed to
+        # the kernel as transposed views, as attn_apply does
+        q5 = _rand(gen, (B, Sq, K, G, hd), dt)
+        k4 = _rand(gen, (B, Skv, K, hd), dt)
+        v4 = _rand(gen, (B, Skv, K, hd), dt)
+        return (q5.reshape(B, Sq, H, hd).transpose(1, 2),
                 k4.transpose(1, 2), v4.transpose(1, 2))
-        got = flash_attention(*args, causal=True, window=window)
+
+    for dt, dn in _dtypes():
+        args = model_layout(dt)
+        got = flash_attention(*args, **kw)
         torch.cuda.synchronize()
-        want = flash_attention_plain(*args, causal=True, window=window)
-        main[dn] = _check("flash_attention", got, want, dn, shape)
-        del q5, k4, v4, args, got, want
-        for (b, h, kk, sq, skv, d, causal, win, cap, what) in small:
-            q = _rand(gen, (b, h, sq, d), dt)
-            k = _rand(gen, (b, kk, skv, d), dt)
-            v = _rand(gen, (b, kk, skv, d), dt)
-            kw = dict(causal=causal, window=win, softcap=cap)
-            got = flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(*args, **kw)
+        main[dn] = _check("flash_attention", got, want, dn, shape,
+                          averaged=not causal)
+        del args, got, want
+        for (b, h, kk, s_q, s_kv, d, c, win, cap, case) in small:
+            q = _rand(gen, (b, h, s_q, d), dt)
+            k = _rand(gen, (b, kk, s_kv, d), dt)
+            v = _rand(gen, (b, kk, s_kv, d), dt)
+            ckw = dict(causal=c, window=win, softcap=cap)
+            got = flash_attention(q, k, v, **ckw)
             torch.cuda.synchronize()
             _check("flash_attention", got, flash_attention_plain(q, k, v,
-                                                                 **kw),
-                   dn, what)
+                                                                 **ckw),
+                   dn, case, averaged=not c)
 
-    # timing at the main path's shape and type (bf16), cold L2
+    # timing at the path's shape and type (bf16), cold L2
     dt = torch.bfloat16
-    one = 2 * (B * S * H * hd + 2 * B * S * K * hd)
+    one = 2 * (B * Sq * H * hd + 2 * B * Skv * K * hd)
 
     def make_sets():
-        sets = []
-        for _ in range(n_sets(one)):
-            q5 = _rand(gen, (B, S, K, G, hd), dt)
-            k4 = _rand(gen, (B, S, K, hd), dt)
-            v4 = _rand(gen, (B, S, K, hd), dt)
-            sets.append((q5.reshape(B, S, H, hd).transpose(1, 2),
-                         k4.transpose(1, 2), v4.transpose(1, 2)))
-        return sets
+        return [model_layout(dt) for _ in range(n_sets(one))]
 
     sets = make_sets()
     # SDPA has no window; it computes the same function only where the
     # window covers the whole prompt
-    if window is not None and window < S:
+    if window is not None and window < Skv:
         raise RuntimeError("flash timing: SDPA cannot stand in for a "
                            "window shorter than the prompt")
     n0 = flash_attention.launches
-    ms = time_ms(lambda q, k, v: flash_attention(q, k, v, causal=True,
-                                                 window=window), sets)
-    plain_ms = time_ms(lambda q, k, v: flash_attention_plain(
-        q, k, v, causal=True, window=window), sets)
+    ms = time_ms(lambda q, k, v: flash_attention(q, k, v, **kw), sets)
+    plain_ms = time_ms(lambda q, k, v: flash_attention_plain(q, k, v, **kw),
+                       sets)
     lib_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), sets)
+        q, k, v, is_causal=causal, enable_gqa=True), sets)
     flash_attention.launches = n0  # timing launches are not the path's
-    # causal (q, k) pairs per head inside the window
-    pairs = sum(min(i + 1, window or S) for i in range(S))
+    # the (q, k) pairs per head the mask keeps (causal: inside the window)
+    pairs = (sum(min(i + 1, window or Skv) for i in range(Sq)) if causal
+             else Sq * Skv)
     flops = 4 * B * H * pairs * hd
-    byts = 2 * (2 * B * H * S * hd) + 2 * (2 * B * K * S * hd)
+    byts = 2 * (2 * B * H * Sq * hd) + 2 * (2 * B * K * Skv * hd)
     return _entry("flash_attention", "flash_attention.cu",
                   "src/repro/kernels/flash_attention.py:92", arch, shape,
                   main["bfloat16"], ms, plain_ms, lib_ms, flops, byts,
                   "bfloat16", (make_sets, lambda q, k, v: flash_attention(
-                      q, k, v, causal=True, window=window), "flash_fwd"))
+                      q, k, v, **kw), "flash_fwd"))
 
 
 def _filled(n, S, B):
@@ -431,21 +475,39 @@ def _ring(s, cur, b):
             torch.full((b,), cur, dtype=torch.int32, device="cuda"))
 
 
-def decode_cases(gen, arch, timed, small):
+def _all_valid(S, B, q_pos):
+    """Slot positions of cross attention's cache: every slot at 0 (kept
+    at every decode position), the decode position ``q_pos``."""
+    import torch
+    return (torch.zeros((B, S), dtype=torch.int32, device="cuda"),
+            torch.full((B,), q_pos, dtype=torch.int32, device="cuda"))
+
+
+def decode_cases(gen, arch, timed, small, *, all_valid=(), slots=None):
     """Decode kernel vs plain on the card at the path's decode shape --
     a partly filled cache (``timed="partly filled"``: mid-generation in
-    a position-indexed cache) and a wrapped ring -- and at ``small``
-    cases; returns the summary entry for the ``timed`` one (bf16)."""
+    a position-indexed cache), a wrapped ring, or with ``slots`` (the
+    encoder's frames) a cache whose every slot is valid (``timed="all
+    valid"``: cross attention) -- and at ``small`` cases and
+    ``all_valid`` ones (b, kv heads, G, S, hd, label); returns the
+    summary entry for the ``timed`` one (bf16)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_plain)
     spec = PATHS[arch]
     H, K, hd, window = _attn_shape(arch)
     G = H // K
-    B, S = spec["batch"], min(spec["cache"], window or spec["cache"])
-    layouts = {"partly filled": _filled(spec["prefill"] + 8, S, B),
-               "wrapped ring": _ring(S, S + 7, B)}
+    B = spec["batch"]
+    if slots:
+        S = slots
+        layouts = {"all valid": _all_valid(S, B, spec["prefill"] + 8)}
+    else:
+        cache = spec["cache"] + get_config(arch).vision_tokens
+        S = min(cache, window or cache)
+        layouts = {"partly filled": _filled(_prefill_len(arch) + 8, S, B),
+                   "wrapped ring": _ring(S, S + 7, B)}
     shape = f"B={B} K={K} G={G} S={S} hd={hd} window={window}"
     main = {}
     for dt, dn in _dtypes():
@@ -483,6 +545,15 @@ def decode_cases(gen, arch, timed, small):
             _check("decode_attention", got,
                    decode_attention_plain(qs, ks, vs, qp, kv, **kw), dn,
                    what)
+        for (b, kk, g, s, d, what) in all_valid:
+            kv, qp = _all_valid(s, b, 3)
+            args = (_rand(gen, (b, kk, g, d), dt),
+                    _rand(gen, (b, kk, s, d), dt),
+                    _rand(gen, (b, kk, s, d), dt), qp, kv)
+            got = decode_attention(*args)
+            torch.cuda.synchronize()
+            _check("decode_attention", got, decode_attention_plain(*args),
+                   dn, what)
 
     dt = torch.bfloat16
     kv, qp = layouts[timed]
@@ -633,10 +704,26 @@ def _leaves(tree, prefix=""):
             yield f"{prefix}{k}", tree[k]
 
 
+def _random_extras(cfg, B, rng, entry=None):
+    """The config's frontend inputs from ``rng`` (float32 numpy):
+    patch embeddings on a vision config, encoder frames on an audio one;
+    with ``entry``, only the extras that entry takes."""
+    out = {}
+    if cfg.vision_tokens and entry in (None, "vision_generate"):
+        out["patch_embeds"] = rng.standard_normal(
+            (B, cfg.vision_tokens, cfg.d_model), dtype=np.float32)
+    if cfg.encoder_layers and entry in (None, "transcribe"):
+        out["enc_frames"] = rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model), dtype=np.float32)
+    return out
+
+
 def phase_parity(arch, n_dec):
-    """The reduced config in fp32, CUDA (kernels) against CPU (plain):
-    prefill logits, every cache leaf after the prefill and after the
-    last of ``n_dec`` decode steps, and every step's logits."""
+    """The reduced config in fp32, CUDA (kernels) against CPU (plain),
+    with random patch embeddings / encoder frames where the config takes
+    them: prefill logits, the encoder's output, every cache leaf after
+    the prefill and after the last of ``n_dec`` decode steps, and every
+    step's logits."""
     import torch
     from repro_torch.configs import get_reduced
     from repro_torch.models import model as M
@@ -647,14 +734,22 @@ def phase_parity(arch, n_dec):
         return {k: to_cuda(v) if isinstance(v, dict) else v.cuda()
                 for k, v in tree.items()}
     params_gpu = to_cuda(params)
-    B, T0 = 2, 8
-    toks = torch.from_numpy(np.random.default_rng(2).integers(
+    B, T0, vt = 2, 8, cfg.vision_tokens
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(
         0, cfg.vocab, (B, T0 + n_dec)).astype(np.int32))
+    ex = {k: torch.from_numpy(v)
+          for k, v in _random_extras(cfg, B, rng).items()}
+    ex_gpu = {k: v.cuda() for k, v in ex.items()}
     lc, cc, ac = M.prefill(cfg, params, toks[:, :T0],
-                           cache_len=T0 + n_dec)
+                           cache_len=vt + T0 + n_dec, **ex)
     lg, cg, ag = M.prefill(cfg, params_gpu, toks[:, :T0].cuda(),
-                           cache_len=T0 + n_dec)
+                           cache_len=vt + T0 + n_dec, **ex_gpu)
     errs = [_close(lg, lc, "prefill logits")]
+    if cfg.encoder_layers:
+        errs.append(_close(M.run_encoder(cfg, params_gpu, ex_gpu[
+            "enc_frames"]), M.run_encoder(cfg, params, ex["enc_frames"]),
+            "encoder output"))
     if ag.keys() != ac.keys():
         raise RuntimeError(f"parity aux keys {sorted(ag)} != {sorted(ac)}")
     for name in ac:  # MoE: router load and load-balancing loss
@@ -663,7 +758,7 @@ def phase_parity(arch, n_dec):
     for name, got in _leaves(cg):
         errs.append(_close(got, want[name], f"prefill cache {name}"))
     for i in range(n_dec):
-        pos = torch.full((B,), T0 + i, dtype=torch.int32)
+        pos = torch.full((B,), vt + T0 + i, dtype=torch.int32)
         tok = toks[:, T0 + i:T0 + i + 1]
         lc, cc = M.decode_step(cfg, params, tok, pos, cc)
         lg, cg = M.decode_step(cfg, params_gpu, tok.cuda(), pos.cuda(), cg)
@@ -672,10 +767,10 @@ def phase_parity(arch, n_dec):
     for name, got in _leaves(cg):
         errs.append(_close(got, want[name], f"decoded cache {name}"))
     log(f"[parity] {arch} reduced fp32, CUDA kernels vs CPU plain: "
-        f"{len(want)} cache leaves, aux {sorted(ac)}, {n_dec} decode "
-        f"steps to position "
-        f"{T0 + n_dec - 1} (window {cfg.window_size}): max abs err "
-        f"{max(errs):.3e} (tolerance 2e-3) ok")
+        f"{len(want)} cache leaves, aux {sorted(ac)}, extras {sorted(ex)}, "
+        f"{n_dec} decode steps to position {vt + T0 + n_dec - 1} (window "
+        f"{cfg.window_size}, {cfg.encoder_seq} encoder frames): max abs "
+        f"err {max(errs):.3e} (tolerance 2e-3) ok")
 
 
 def _close(got, want, what):
@@ -695,16 +790,33 @@ def _kernel_counters():
             "decode_attention": decode_attention, "rglru_scan": rglru_scan}
 
 
-def _layer_counts(cfg):
-    """(attention layers, RG-LRU layers) of the config."""
+def _per_call(cfg):
+    """Kernel launches of one call, from the config's layers: flash and
+    rglru_scan in a prefill or forward (flash once per attention layer,
+    cross-attention layer and encoder layer), decode in a decode step
+    (once per attention and cross-attention layer)."""
     from repro_torch.models import model as M
     pat, n_per, n_rem = M.layer_layout(cfg)
     kinds = list(pat) * n_per + list(pat[:n_rem])
-    return sum(k.startswith("attn") for k in kinds), kinds.count("rglru")
+    n_attn = sum(k.startswith("attn") for k in kinds)
+    n_cross = len(kinds) if cfg.encoder_layers else 0
+    return {"flash_attention": n_attn + n_cross + cfg.encoder_layers,
+            "decode_attention": n_attn + n_cross,
+            "rglru_scan": kinds.count("rglru")}
+
+
+def _want(cfg, forwards, steps):
+    """Launches of ``forwards`` prefills or forwards and ``steps`` decode
+    steps."""
+    per = _per_call(cfg)
+    return {"flash_attention": per["flash_attention"] * forwards,
+            "decode_attention": per["decode_attention"] * steps,
+            "rglru_scan": per["rglru_scan"] * forwards}
 
 
 def phase_serve(arch, entries):
-    """Drive one main path; fills the launches of its ``entries``."""
+    """Drive one main path, every entry of the engine; fills the
+    launches of its ``entries``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
@@ -718,9 +830,14 @@ def phase_serve(arch, entries):
                         device="cuda")
     cold = eng.cold_start()
     rep = eng.report()
-    log(f"[serve] {arch} full width: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {M.param_count(cfg)} params ({cfg.dtype}); batch "
-        f"{B}, prompt {P}, max_len {CACHE}, {NEW} new tokens")
+    requests = [e for e in eng.entries() for _ in range(N_REQUESTS[e])]
+    enc = (f" + {cfg.encoder_layers} encoder layers" if cfg.encoder_layers
+           else "")
+    log(f"[serve] {arch} full width: {cfg.n_layers} layers{enc}, d_model "
+        f"{cfg.d_model}, {M.param_count(cfg)} params "
+        f"({cfg.dtype}); batch {B}, prompt {P}, max_len {CACHE} (+ "
+        f"{cfg.vision_tokens} vision slots), {NEW} new tokens; requests "
+        f"{requests}")
     log(f"[serve] {arch} cold_start_s {cold:.4f} by_group "
         f"{rep['by_group']}")
     for row in rep["components"]:
@@ -728,45 +845,49 @@ def phase_serve(arch, entries):
 
     counters = _kernel_counters()
     rng = np.random.default_rng(7)
+    # the requests' inputs are drawn before the counters are set to 0
+    inputs = [(e, rng.integers(0, cfg.vocab, (B, P)),
+               _random_extras(cfg, B, rng, e)) for e in requests]
     for fn in counters.values():
         fn.launches = 0
-    lat, outs = [], []
-    for _ in range(N_GENERATE):
-        toks = rng.integers(0, cfg.vocab, (B, P))
-        out, dt = eng.serve("generate", toks, max_new_tokens=NEW)
-        lat.append(dt)
-        outs.append((toks, out))
-    logits, dt_score = eng.serve("score", rng.integers(0, cfg.vocab, (B, P)))
+    lat, outs = {}, []
+    for entry, toks, extras in inputs:
+        out, dt = eng.serve(entry, toks, max_new_tokens=NEW, extras=extras)
+        lat.setdefault(entry, []).append(dt)
+        outs.append((entry, toks, out))
     got = {name: fn.launches for name, fn in counters.items()}
 
-    n_attn, n_rglru = _layer_counts(cfg)
-    want = {"flash_attention": n_attn * (N_GENERATE + 1),
-            "decode_attention": n_attn * (NEW - 1) * N_GENERATE,
-            "rglru_scan": n_rglru * (N_GENERATE + 1)}
-    log(f"[serve] {arch} launches {got} (want {want}: {n_attn} attention "
-        f"and {n_rglru} RG-LRU layers; flash and rglru once per layer per "
-        f"prefill/forward x {N_GENERATE + 1}, decode once per attention "
-        f"layer x {NEW - 1} steps x {N_GENERATE})")
+    n_gen = sum(e != "score" for e in requests)
+    want = _want(cfg, len(requests), (NEW - 1) * n_gen)
+    log(f"[serve] {arch} launches {got} (want {want}: per prefill or "
+        f"forward / decode step {_per_call(cfg)}, x {len(requests)} "
+        f"requests / {NEW - 1} steps x {n_gen} generating requests)")
     if got != want:
         raise RuntimeError(f"{arch}: the main path did not run through the "
                            "kernels as expected")
-    for toks, out in outs:
-        if out.shape != (B, NEW) or out.min() < 0 or out.max() >= cfg.vocab:
-            raise RuntimeError(f"generate: bad tokens {out.shape}")
-    if logits.shape != (B, P, cfg.vocab) or not np.isfinite(logits).all():
-        raise RuntimeError("score: logits not finite / wrong shape")
-    del logits
-    log(f"[serve] {arch} generate latency_s {[round(x, 4) for x in lat]}; "
-        f"score latency_s {dt_score:.4f}")
+    for entry, toks, out in outs:
+        if entry == "score":
+            if out.shape != (B, P, cfg.vocab) or not np.isfinite(out).all():
+                raise RuntimeError("score: logits not finite / wrong shape")
+        elif out.shape != (B, NEW) or out.min() < 0 \
+                or out.max() >= cfg.vocab:
+            raise RuntimeError(f"{entry}: bad tokens {out.shape}")
+    log(f"[serve] {arch} latency_s "
+        f"{ {e: [round(x, 4) for x in v] for e, v in lat.items()} }")
     log(f"[serve] {arch} max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     if cfg.moe is not None:
         log_experts(f"[serve] {arch}", eng.report())
-    log(f"[serve] {arch} first request tokens[0]: {outs[0][1][0].tolist()}")
+    for entry in eng.entries():
+        first = next(o for e, _, o in outs if e == entry)
+        if entry != "score":
+            log(f"[serve] {arch} first {entry} tokens[0]: "
+                f"{first[0].tolist()}")
+    outs = [o for o in outs if o[0] != "score"]  # free the logits
 
     # for information: full-width prefill+decode logits against the
     # teacher-forced forward over the same tokens (bf16 model)
-    toks, out = outs[0]
+    _, toks, out = outs[0]
     seq = np.concatenate([toks, out[:, :-1]], axis=1)
     params = eng._params
     t = torch.as_tensor(seq, dtype=torch.int32, device="cuda")
@@ -823,8 +944,7 @@ def phase_launcher(arch):
     workload = skewed_workload(ServingEngine(cfg).entries(),
                                N_LAUNCHER_REQUESTS, seed=1)
     hot = workload[0]
-    n_gen = workload.count("generate")
-    n_attn, _ = _layer_counts(cfg)
+    n_gen = sum(e != "score" for e in workload)
     log(f"[launcher] {arch}: batch {spec['batch']}, prompt "
         f"{spec['prefill']}, max_len {spec['cache']}, {NEW} new tokens; "
         f"workload {dict(Counter(workload))}, first (hot) {hot!r}")
@@ -842,10 +962,10 @@ def phase_launcher(arch):
                     if policy.is_lazy(c)]
         built = [e for e in eng.entries()
                  if eng.registry[f"compile.{e}"].ready]
-        want = {"flash_attention": n_attn * (len(workload) + len(built)),
-                "decode_attention": n_attn * ((NEW - 1) * n_gen
-                                              + ("generate" in built)),
-                "rglru_scan": 0}
+        # each built warm-up ran one prefill or forward, and a generating
+        # entry's one decode step
+        want = _want(cfg, len(workload) + len(built),
+                     (NEW - 1) * n_gen + sum(e != "score" for e in built))
         if got != want:
             raise RuntimeError(f"launcher {name}: launches {got}, want "
                                f"{want}")
@@ -859,7 +979,8 @@ def phase_launcher(arch):
             f"latency_s mean "
             f"{ {k: round(float(np.mean(v)), 4) for k, v in lat.items()} }"
             f"; launches {got}")
-        log_experts(f"[launcher] {name}:", rep)
+        if cfg.moe is not None:
+            log_experts(f"[launcher] {name}:", rep)
         if name == "eager":
             policies["slimstart"] = LoadPolicy.from_report(rep)
         del eng
@@ -904,29 +1025,36 @@ def phase_moe_timing(eng):
 
 
 def phase_breakdown(eng):
-    """Where one generate request's time goes, for information: prefill
-    and decode-step wall times (host clock around synchronised calls),
-    then a torch.profiler trace of one request for the device's busy
-    share and its kernel time by kind."""
+    """Where one request's time goes, for information: prefill and
+    decode-step wall times (host clock around synchronised calls), then
+    a torch.profiler trace of one request for the device's busy share
+    and its kernel time by kind.  The request is the path's frontend
+    entry (``vision_generate``, ``transcribe``) with random extras where
+    it has one, else a ``generate``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     arch = eng.cfg.name
     spec = PATHS[arch]
     B, P, NEW = spec["batch"], spec["prefill"], spec["new"]
-    exes, params = eng.registry["compile.generate"].value, eng._params
-    toks = torch.as_tensor(np.random.default_rng(11).integers(
-        0, eng.cfg.vocab, (B, P)), dtype=torch.int32, device="cuda")
+    entry = eng.entries()[-2]  # the frontend entry, else generate
+    exes, params = eng.registry[f"compile.{entry}"].value, eng._params
+    rng = np.random.default_rng(11)
+    toks = torch.as_tensor(rng.integers(0, eng.cfg.vocab, (B, P)),
+                           dtype=torch.int32, device="cuda")
+    extra = eng._extras(entry, _random_extras(eng.cfg, B, rng, entry))
+    pos0 = eng._pos0(entry, P)
 
     def request(times):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        nxt, caches, _ = exes["prefill"](params, toks)
+        nxt, caches, _ = exes["prefill"](params, toks, extra)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         tok = nxt[:, None]
         for i in range(NEW - 1):
-            pos = torch.full((B,), P + i, dtype=torch.int32, device="cuda")
+            pos = torch.full((B,), pos0 + i, dtype=torch.int32,
+                             device="cuda")
             t0 = time.perf_counter()
             tok, caches = exes["decode"](params, tok, pos, caches)
             torch.cuda.synchronize()
@@ -935,7 +1063,7 @@ def phase_breakdown(eng):
     times = []
     request(times)
     steps = sorted(times[1:])
-    log(f"[breakdown] {arch} prefill_s {times[0]:.4f}; decode step_s "
+    log(f"[breakdown] {arch} {entry} prefill_s {times[0]:.4f}; decode step_s "
         f"median {steps[len(steps) // 2]:.4f} min {steps[0]:.4f} max "
         f"{steps[-1]:.4f} ({len(steps)} steps)")
 
@@ -964,7 +1092,8 @@ def phase_breakdown(eng):
         log(f"[breakdown] {arch} device busy share: not measured (the "
             "profiler recorded no device events)")
         return
-    log(f"[breakdown] {arch} profiled request: wall {wall_us / 1e3:.2f} ms, "
+    log(f"[breakdown] {arch} profiled {entry} request: wall "
+        f"{wall_us / 1e3:.2f} ms, "
         f"device busy {busy / 1e3:.2f} ms (share {busy / wall_us:.4f}, "
         f"idle {1 - busy / wall_us:.4f}; profiler overhead included)")
     for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
@@ -974,70 +1103,136 @@ def phase_breakdown(eng):
         log(f"[breakdown]   top kernel {us / 1e3:.3f} ms: {name[:90]}")
 
 
+class _Phase:
+    """Logs a phase's wall time when it ends."""
+
+    def __init__(self, what):
+        self.what = what
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        log(f"[time] {self.what}: {time.perf_counter() - self.t0:.1f} s")
+
+
 def main():
     import gc
 
     import torch
-    smi = phase_device()
-    phase_build()
+    t_start = time.perf_counter()
+    with _Phase("1 device"):
+        smi = phase_device()
+    from repro_torch.configs import get_config
+    with _Phase("2 build"):
+        phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = {
-        "granite-8b": [
-            flash_cases(gen, "granite-8b", [
-                (1, 4, 1, 40, 40, 32, True, 16, None, "MQA+window"),
-                (1, 2, 2, 33, 33, 16, True, None, 30.0, "softcap+ragged"),
-                (1, 4, 2, 100, 100, 64, True, None, None, "ragged GQA"),
-                (1, 2, 2, 16, 80, 16, False, None, None, "bidir Sq!=Skv"),
-                (1, 4, 2, 130, 130, 128, True, None, None, "hd 128 S 130"),
-                (1, 4, 2, 200, 200, 128, True, None, None, "hd 128 S 200"),
-                (1, 4, 2, 16, 200, 128, False, None, None,
-                 "hd 128 bidir Sq 16 Skv 200")]),
-            decode_cases(gen, "granite-8b", "partly filled", [
-                (2, 2, 1, 40, 16, 16, None, "ring+window"),
-                (1, 2, 2, 33, 16, None, 30.0, "softcap"),
-                (1, 1, 4, 48, 16, None, None, "MQA ragged"),
-                (1, 2, 4, 20, 128, None, None, "hd 128 S 20 (one split)"),
-                (1, 1, 16, 200, 128, None, None, "hd 128 G 16 S 200"),
-                (2, 2, 1, 150, 64, 40, 30.0,
-                 "hd 64 G 1 ring+window+softcap")])],
-        "granite-moe-1b-a400m": [
-            flash_cases(gen, "granite-moe-1b-a400m", [
-                (1, 4, 2, 130, 130, 64, True, None, None, "hd 64 G 2 S 130"),
-                (1, 4, 2, 16, 200, 64, False, None, None,
-                 "hd 64 bidir Sq 16 Skv 200")]),
-            decode_cases(gen, "granite-moe-1b-a400m", "partly filled", [
-                (2, 2, 2, 77, 64, None, None, "hd 64 G 2 ragged")])],
-        "recurrentgemma-2b": [
-            flash_cases(gen, "recurrentgemma-2b", [
-                (1, 10, 1, 100, 100, 256, True, 48, None,
-                 "hd 256 G 10 ragged+window"),
-                (1, 2, 1, 130, 130, 256, True, None, None, "hd 256 S 130"),
-                (1, 2, 1, 200, 200, 256, True, None, None, "hd 256 S 200"),
-                (1, 10, 1, 200, 200, 256, True, 48, None,
-                 "hd 256 G 10 S 200 window 48"),
-                (1, 2, 1, 130, 130, 256, True, None, 50.0,
-                 "hd 256 softcap 50"),
-                (1, 2, 1, 16, 200, 256, False, None, None,
-                 "hd 256 bidir Sq 16 Skv 200")]),
-            decode_cases(gen, "recurrentgemma-2b", "wrapped ring", [
-                (2, 1, 10, 96, 256, 96, None, "hd 256 G 10 ring+window"),
-                (1, 1, 10, 33, 256, None, None, "hd 256 G 10 ragged")]),
-            rglru_cases(gen, "recurrentgemma-2b")],
-    }
-    phase_parity("granite-8b", 5)
-    phase_parity("recurrentgemma-2b", 20)  # past the reduced window of 16
-    phase_parity("granite-moe-1b-a400m", 5)
-    phase_parity("olmoe-1b-7b", 5)
+    with _Phase("3 kernels"):
+        kernels = {
+            "granite-8b": [
+                flash_cases(gen, "granite-8b", [
+                    (1, 4, 1, 40, 40, 32, True, 16, None, "MQA+window"),
+                    (1, 2, 2, 33, 33, 16, True, None, 30.0,
+                     "softcap+ragged"),
+                    (1, 4, 2, 100, 100, 64, True, None, None, "ragged GQA"),
+                    (1, 2, 2, 16, 80, 16, False, None, None,
+                     "bidir Sq!=Skv"),
+                    (1, 4, 2, 130, 130, 128, True, None, None,
+                     "hd 128 S 130"),
+                    (1, 4, 2, 200, 200, 128, True, None, None,
+                     "hd 128 S 200"),
+                    (1, 4, 2, 16, 200, 128, False, None, None,
+                     "hd 128 bidir Sq 16 Skv 200")]),
+                decode_cases(gen, "granite-8b", "partly filled", [
+                    (2, 2, 1, 40, 16, 16, None, "ring+window"),
+                    (1, 2, 2, 33, 16, None, 30.0, "softcap"),
+                    (1, 1, 4, 48, 16, None, None, "MQA ragged"),
+                    (1, 2, 4, 20, 128, None, None,
+                     "hd 128 S 20 (one split)"),
+                    (1, 1, 16, 200, 128, None, None, "hd 128 G 16 S 200"),
+                    (2, 2, 1, 150, 64, 40, 30.0,
+                     "hd 64 G 1 ring+window+softcap")])],
+            "granite-moe-1b-a400m": [
+                flash_cases(gen, "granite-moe-1b-a400m", [
+                    (1, 4, 2, 130, 130, 64, True, None, None,
+                     "hd 64 G 2 S 130"),
+                    (1, 4, 2, 16, 200, 64, False, None, None,
+                     "hd 64 bidir Sq 16 Skv 200")]),
+                decode_cases(gen, "granite-moe-1b-a400m", "partly filled", [
+                    (2, 2, 2, 77, 64, None, None, "hd 64 G 2 ragged")])],
+            "recurrentgemma-2b": [
+                flash_cases(gen, "recurrentgemma-2b", [
+                    (1, 10, 1, 100, 100, 256, True, 48, None,
+                     "hd 256 G 10 ragged+window"),
+                    (1, 2, 1, 130, 130, 256, True, None, None,
+                     "hd 256 S 130"),
+                    (1, 2, 1, 200, 200, 256, True, None, None,
+                     "hd 256 S 200"),
+                    (1, 10, 1, 200, 200, 256, True, 48, None,
+                     "hd 256 G 10 S 200 window 48"),
+                    (1, 2, 1, 130, 130, 256, True, None, 50.0,
+                     "hd 256 softcap 50"),
+                    (1, 2, 1, 16, 200, 256, False, None, None,
+                     "hd 256 bidir Sq 16 Skv 200")]),
+                decode_cases(gen, "recurrentgemma-2b", "wrapped ring", [
+                    (2, 1, 10, 96, 256, 96, None,
+                     "hd 256 G 10 ring+window"),
+                    (1, 1, 10, 33, 256, None, None, "hd 256 G 10 ragged")]),
+                rglru_cases(gen, "recurrentgemma-2b")],
+            "pixtral-12b": [
+                flash_cases(gen, "pixtral-12b", [
+                    (1, 8, 2, 300, 300, 128, True, None, None,
+                     "hd 128 G 4 S 300")], what="vision prefill"),
+                decode_cases(gen, "pixtral-12b", "partly filled", [
+                    (2, 2, 4, 110, 128, None, None, "hd 128 G 4 ragged")])],
+            "whisper-large-v3": [
+                flash_cases(gen, "whisper-large-v3", [
+                    (1, 4, 4, 150, 150, 64, False, None, None,
+                     "hd 64 G 1 no mask S 150"),
+                    (2, 4, 4, 1, 70, 64, False, None, None,
+                     "hd 64 G 1 Sq 1 Skv 70")],
+                    sq=get_config("whisper-large-v3").encoder_seq,
+                    causal=False, what="encoder"),
+                flash_cases(gen, "whisper-large-v3", [
+                    (2, 4, 4, 100, 100, 64, True, None, None,
+                     "hd 64 G 1 S 100")], what="decoder self"),
+                flash_cases(gen, "whisper-large-v3", [
+                    (2, 4, 4, 100, 300, 64, False, None, None,
+                     "hd 64 G 1 Sq 100 Skv 300")],
+                    sq=PATHS["whisper-large-v3"]["prefill"],
+                    skv=get_config("whisper-large-v3").encoder_seq,
+                    causal=False, what="cross attention"),
+                decode_cases(gen, "whisper-large-v3", "partly filled", [
+                    (2, 3, 1, 70, 64, None, None, "hd 64 G 1 ragged")]),
+                decode_cases(gen, "whisper-large-v3", "all valid", [],
+                             all_valid=[
+                                 (2, 3, 1, 77, 64, "hd 64 G 1 all S 77"),
+                                 (1, 2, 1, 33, 64, "hd 64 G 1 all S 33")],
+                             slots=get_config(
+                                 "whisper-large-v3").encoder_seq)],
+        }
+    with _Phase("4 parity"):
+        phase_parity("granite-8b", 5)
+        phase_parity("recurrentgemma-2b", 20)  # past the reduced window
+        phase_parity("granite-moe-1b-a400m", 5)
+        phase_parity("olmoe-1b-7b", 5)
+        phase_parity("pixtral-12b", 5)
+        phase_parity("whisper-large-v3", 5)
     for arch, entries in kernels.items():
-        eng = phase_serve(arch, entries)
-        phase_breakdown(eng)
-        if eng.cfg.moe is not None:
-            phase_moe_timing(eng)
-        del eng  # free this path's weights before the next path's
-        gc.collect()
-        torch.cuda.empty_cache()
-    phase_launcher("granite-moe-1b-a400m")
-    phase_device_time([e for es in kernels.values() for e in es])
+        with _Phase(f"5 serve + 6 breakdown {arch}"):
+            eng = phase_serve(arch, entries)
+            phase_breakdown(eng)
+            if eng.cfg.moe is not None:
+                phase_moe_timing(eng)
+            del eng  # free this path's weights before the next path's
+            gc.collect()
+            torch.cuda.empty_cache()
+    for arch in LAUNCHER_ARCHS:
+        with _Phase(f"5b launcher {arch}"):
+            phase_launcher(arch)
+    with _Phase("7 device_ms"):
+        phase_device_time([e for es in kernels.values() for e in es])
+    log(f"[time] total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [e for es in kernels.values()
                                   for e in es]}))

@@ -8,8 +8,8 @@ Each tree is timed through its own wrappers: the other tree's
 ``repro_torch.kernels`` is imported apart from this one's (its own
 ``_build``, sources and build directory), so the kernels' C interface
 may differ between the trees; their Python entry points may not.  Both
-trees are built first, then each kernel of the arch's main path
-(``chip_smoke.py``'s shapes, bf16 attention, fp32 RG-LRU scan, cold L2)
+trees are built first, then each kernel of a decoder-only arch's main
+path (``chip_smoke.py``'s shapes, bf16 attention, fp32 RG-LRU scan, cold L2)
 is timed in turns (other, this, this, other), three rounds, each reading
 twice: CUDA events around the calls (``ms``, which includes a wrapper's
 host path where that is the longer) and the kernel's own device time
@@ -59,7 +59,11 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other", type=Path, help="root of the other checkout")
-    ap.add_argument("--arch", default="granite-8b", choices=list(cs.PATHS))
+    # the decoder-only paths: one causal prefill shape and one self
+    # cache (whisper's encoder and cross shapes are timed by chip_smoke.py)
+    ap.add_argument("--arch", default="granite-8b",
+                    choices=[a for a in cs.PATHS
+                             if not get_config(a).encoder_layers])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: torch.cuda.is_available() is false")
@@ -71,7 +75,7 @@ def main():
     print(f"[ab] built {args.other} and {REPO}", flush=True)
 
     spec = cs.PATHS[args.arch]
-    B, S = spec["batch"], spec["prefill"]
+    B, S = spec["batch"], cs._prefill_len(args.arch)  # vision prefix too
     H, K, hd, window = cs._attn_shape(args.arch)
     G = H // K
     dt = torch.bfloat16
@@ -84,7 +88,8 @@ def main():
         v4 = cs._rand(gen, (B, S, K, hd), dt)
         fsets.append((q5.reshape(B, S, H, hd).transpose(1, 2),
                       k4.transpose(1, 2), v4.transpose(1, 2)))
-    Sc = min(spec["cache"], window or spec["cache"])
+    cache = spec["cache"] + get_config(args.arch).vision_tokens
+    Sc = min(cache, window or cache)
     kv, qp = (cs._ring(Sc, Sc + 7, B) if window else
               cs._filled(S + 8, Sc, B))
     dsets = []

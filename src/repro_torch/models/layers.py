@@ -1,7 +1,7 @@
-"""Building blocks of the decoder (PyTorch port of
-``repro.models.layers``: global and local attention with optional
-QK-norm, the gated MLP, the capacity-routed MoE layer and the RG-LRU
-recurrent block).
+"""Building blocks of the model (PyTorch port of
+``repro.models.layers``: global, local, bidirectional (encoder) and
+cross attention with optional QK-norm, the gated MLP, the
+capacity-routed MoE layer and the RG-LRU recurrent block).
 
 Each block keeps the reference's three parts: ``*_template(cfg)`` (a
 flat dict ``name -> ParamSpec``), ``*_apply`` (full sequence) and
@@ -162,7 +162,7 @@ def causal_conv1d(x, w, b, state=None):
 
 
 # --------------------------------------------------------------------------
-# attention block (attn_global, attn_local)
+# attention block (attn_global, attn_local, attn_bidir, attn_cross)
 # --------------------------------------------------------------------------
 
 def attn_template(cfg: ArchConfig):
@@ -184,41 +184,67 @@ def attn_template(cfg: ArchConfig):
     return t
 
 
-def _project_qkv(p, cfg, x):
+def _project_q(p, cfg, x):
+    """q (B, S, K, G, hd): the query projection alone, as cross attention
+    needs (its k and v come from the encoder)."""
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     B, S, _ = x.shape
-    q, k, v = dot(x, p["wq"]), dot(x, p["wk"]), dot(x, p["wv"])
+    q = dot(x, p["wq"])
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q + p["bq"]
     q = q.reshape(B, S, K, H // K, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    return q
+
+
+def _project_qkv(p, cfg, x):
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    B, S, _ = x.shape
+    k, v = dot(x, p["wk"]), dot(x, p["wv"])
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
     k = k.reshape(B, S, K, hd)
     v = v.reshape(B, S, K, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    return q, k, v
+    return _project_q(p, cfg, x), k, v
 
 
-def attn_apply(p, cfg, x, positions, *, kind="attn_global", make_cache=0):
-    """Full-sequence causal attention from position 0.
+def attn_apply(p, cfg, x, positions, *, kind="attn_global", encoder_kv=None,
+               make_cache=0):
+    """Full-sequence attention from position 0.
 
-    kind: attn_global | attn_local (window ``cfg.window_size``).
-    Returns (y, cache|None); ``make_cache`` > 0 emits a decode cache of
-    that many slots (a local cache holds at most ``cfg.window_size``).
+    kind: attn_global | attn_local (window ``cfg.window_size``) |
+    attn_bidir (the encoder's: no mask, no rope) | attn_cross (q from
+    ``x``, k and v the encoder's, ``encoder_kv`` = (ek, ev) (B, T, K,
+    hd); no mask).  Returns (y, cache|None); ``make_cache`` > 0 emits a
+    decode cache of that many slots for attn_global and attn_local (a
+    local cache holds at most ``cfg.window_size``).
     """
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
+    if kind == "attn_cross":
+        ek, ev = encoder_kv
+        q = _project_q(p, cfg, x)
+        if cfg.use_rope:
+            q = rope(q, positions, cfg.rope_theta)
+        # every (query, frame) pair is kept, so the kernel's positions
+        # (indices from 0 on both sides) never matter: none are checked
+        o = ops.attention_op(q, ek, ev, causal=False)
+        return dot(o.reshape(B, S, H * hd), p["wo"]), None
     q, k, v = _project_qkv(p, cfg, x)
+    causal = kind != "attn_bidir"
     window = cfg.window_size if kind == "attn_local" else None
-    if cfg.use_rope:
+    if causal and cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    o = ops.attention_op(q, k, v, causal=True, window=window,
+    o = ops.attention_op(q, k, v, causal=causal, window=window,
                          softcap=cfg.attn_softcap, positions=positions)
     y = dot(o.reshape(B, S, H * hd), p["wo"])
 
     cache = None
-    if make_cache:
+    if make_cache and kind in ("attn_global", "attn_local"):
         slots = make_cache if kind == "attn_global" else min(
             make_cache, cfg.window_size)
         n = min(S, slots)
@@ -243,15 +269,29 @@ def attn_apply(p, cfg, x, positions, *, kind="attn_global", make_cache=0):
     return y, cache
 
 
-def attn_decode(p, cfg, x, positions, cache, *, kind="attn_global"):
+def attn_decode(p, cfg, x, positions, cache, *, kind="attn_global",
+                encoder_kv=None):
     """Single-token attention with a KV cache, updated in place.
     x: (B, 1, D); positions: (B,).  Returns (y, cache).
 
     Global caches are position-indexed (slot = position); local caches are
     ring buffers (slot = position % slots) with explicit slot positions.
+    attn_cross attends over the encoder's ``encoder_kv`` = (ek, ev)
+    (B, T, K, hd) with no mask and leaves ``cache`` as it is.
     """
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim
+    if kind == "attn_cross":
+        ek, ev = encoder_kv
+        q = _project_q(p, cfg, x)
+        if cfg.use_rope:
+            q = rope(q, positions[:, None], cfg.rope_theta)
+        # the kernel keeps slot t where 0 <= kv_pos[t] <= q_pos: slot
+        # positions of 0 keep every frame at every decode position (the
+        # frames' own indices 0..T-1 would drop those past the position)
+        kv_pos = positions.new_zeros((B, ek.shape[1]))
+        o = ops.decode_attention_op(q, ek, ev, positions, kv_pos)
+        return dot(o.reshape(B, 1, H * hd), p["wo"]), cache
     q, k, v = _project_qkv(p, cfg, x)
     if cfg.use_rope:
         q = rope(q, positions[:, None], cfg.rope_theta)

@@ -1,7 +1,19 @@
-"""Decoder LM (PyTorch port of ``repro.models.model``, for configs whose
-layers are ``attn_global``, ``attn_local`` and ``rglru`` blocks, each
-with a gated MLP or, where ``cfg.moe`` is set, a capacity-routed MoE
-layer: the dense decoders, recurrentgemma and the MoE decoders).
+"""The model (PyTorch port of ``repro.models.model``), for configs whose
+decoder layers are ``attn_global``, ``attn_local`` and ``rglru``
+blocks, each with a gated MLP or, where ``cfg.moe`` is set, a
+capacity-routed MoE layer: the dense decoders, recurrentgemma, the MoE
+decoders, pixtral and whisper.
+
+The two frontends are the reference's stubs.  pixtral's
+``patch_embeds`` (B, vision_tokens, D) go through ``vision_proj`` and
+fill the first positions in front of the text.  whisper's
+``enc_frames`` (B, encoder_seq, D) run through the encoder
+(``run_encoder``: ``attn_bidir`` blocks, a kind only the encoder uses),
+and every decoder block cross-attends to its output; the encoder's k
+and v of each block stay in its cache (``cross_k``/``cross_v``), written
+by the prefill and read, never rewritten, by each decode step.  Where
+``learned_pos_embed`` is set, positions add ``pos_embed[min(pos,
+learned_pos_embed - 1)]`` (the reference's clamp).
 
 Layers are grouped into periods as in the reference; parameters for
 each period position are stacked over ``n_periods`` (``layers/scan/
@@ -17,6 +29,7 @@ Public surface:
   model_template(cfg)     -> nested dict of ParamSpec
   init_params(cfg, generator, device) -> parameter tree
   init_cache(cfg, B, len, device)     -> stacked KV caches
+  run_encoder(cfg, params, frames)    -> encoder output (B, T, D)
   forward(cfg, params, tokens, ...)   -> (hidden, caches, aux)
   prefill(cfg, params, tokens, ...)   -> (logits, caches, aux)
   decode_step(cfg, params, token, pos, caches) -> (logits, caches)
@@ -36,9 +49,9 @@ from repro_torch.models.layers import ParamSpec
 f32 = torch.float32
 
 # config flags the port does not implement (value -> unsupported)
-_UNSUPPORTED = ("window_pattern", "kv_quant", "encoder_layers",
-                "vision_tokens", "sandwich_norm", "learned_pos_embed")
-_KINDS = ("attn_global", "attn_local", "rglru")  # block kinds ported
+_UNSUPPORTED = ("window_pattern", "kv_quant", "sandwich_norm")
+_KINDS = ("attn_global", "attn_local", "rglru")  # decoder block kinds
+_STACKED = ("layers", "encoder/scan")  # template groups stacked by layer
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -87,8 +100,11 @@ def _groups(cfg: ArchConfig):
 # templates
 # --------------------------------------------------------------------------
 
-def block_template(cfg: ArchConfig, kind: str):
-    if kind not in _KINDS:
+def block_template(cfg: ArchConfig, kind: str, *, encoder=False):
+    """A decoder block of ``kind`` (with the cross sub-block where the
+    config has an encoder) or, with ``encoder``, an encoder block
+    (``attn_bidir``, a gated MLP even in an MoE config)."""
+    if kind not in (("attn_bidir",) if encoder else _KINDS):
         raise NotImplementedError(kind)
     D = cfg.d_model
     norm = lambda: ParamSpec((D,), ("embed",), init="zeros")  # noqa: E731
@@ -97,9 +113,12 @@ def block_template(cfg: ArchConfig, kind: str):
         t["rglru"] = L.rglru_template(cfg)
     else:
         t["attn"] = L.attn_template(cfg)
+    if not encoder and cfg.encoder_layers:
+        t["ln_cross"] = norm()
+        t["cross"] = L.attn_template(cfg)
     if cfg.d_ff > 0:
         t["ln2"] = norm()
-        if cfg.moe is not None:
+        if cfg.moe is not None and not encoder:
             t["moe"] = L.moe_template(cfg)
         else:
             t["mlp"] = L.mlp_template(cfg)
@@ -121,10 +140,22 @@ def model_template(cfg: ArchConfig):
     }
     if not cfg.tie_embeddings:
         t["lm_head"] = ParamSpec((D, V), ("embed", "vocab"))
+    if cfg.learned_pos_embed:
+        t["pos_embed"] = ParamSpec((cfg.learned_pos_embed, D),
+                                   (None, "embed"), scale=0.02)
+    if cfg.vision_tokens:
+        t["vision_proj"] = ParamSpec((D, D), ("embed", "embed"))
     t["layers"] = {
         group: {f"pos{i}": _stack_specs(block_template(cfg, k), n)
                 for i, k in enumerate(pattern)}
         for group, pattern, n in _groups(cfg)}
+    if cfg.encoder_layers:
+        t["encoder"] = {
+            "scan": {"pos0": _stack_specs(
+                block_template(cfg, "attn_bidir", encoder=True),
+                cfg.encoder_layers)},
+            "final_norm": ParamSpec((D,), ("embed",), init="zeros"),
+        }
     return t
 
 
@@ -157,7 +188,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         out = {}
         for k, s in tmpl.items():
             if isinstance(s, dict):
-                out[k] = build(s, stacked, f"{path}{k}/")
+                out[k] = build(s, stacked or f"{path}{k}" in _STACKED,
+                               f"{path}{k}/")
                 continue
             if blank_experts and path.endswith("moe/") and k in ("wi",
                                                                  "wo"):
@@ -174,10 +206,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             out[k] = t
         return out
 
-    tmpl = model_template(cfg)
-    params = build({k: v for k, v in tmpl.items() if k != "layers"}, False)
-    params["layers"] = build(tmpl["layers"], True)
-    return params
+    return build(model_template(cfg), False)
 
 
 # --------------------------------------------------------------------------
@@ -195,10 +224,15 @@ def _block_cache(cfg: ArchConfig, kind: str, n: int, B: int,
                                     dtype=dt, device=device)}
     S = cache_len if kind == "attn_global" else min(cfg.window_size,
                                                     cache_len)
-    return {"k": torch.zeros((n, B, S, K, hd), dtype=dt, device=device),
-            "v": torch.zeros((n, B, S, K, hd), dtype=dt, device=device),
-            "pos": torch.full((n, B, S), -1, dtype=torch.int32,
-                              device=device)}
+    c = {"k": torch.zeros((n, B, S, K, hd), dtype=dt, device=device),
+         "v": torch.zeros((n, B, S, K, hd), dtype=dt, device=device),
+         "pos": torch.full((n, B, S), -1, dtype=torch.int32,
+                           device=device)}
+    if cfg.encoder_layers:  # the encoder's k and v, for cross attention
+        for key in ("cross_k", "cross_v"):
+            c[key] = torch.zeros((n, B, cfg.encoder_seq, K, hd), dtype=dt,
+                                 device=device)
+    return c
 
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device="cuda"):
@@ -213,11 +247,12 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device="cuda"):
 # --------------------------------------------------------------------------
 
 def _apply_block(p, cfg, kind, x, positions, *, cache=None, decode=False,
-                 make_cache=0):
+                 make_cache=0, enc_out=None):
     """One residual block.  Returns (x, cache, aux): in decode, the
     attention cache updated in place or the RG-LRU block's new state; in
-    prefill, the new cache when ``make_cache`` > 0; aux, the MoE layer's
-    router load and loss ({} without one)."""
+    prefill, the new cache when ``make_cache`` > 0 (with the encoder's k
+    and v where the block cross-attends to ``enc_out``); aux, the MoE
+    layer's router load and loss ({} without one)."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "rglru":
         if decode:
@@ -232,6 +267,25 @@ def _apply_block(p, cfg, kind, x, positions, *, cache=None, decode=False,
         y, cache = L.attn_apply(p["attn"], cfg, h, positions, kind=kind,
                                 make_cache=make_cache)
     x = x + y
+    if "cross" in p:
+        h = L.rms_norm(x, p["ln_cross"], cfg.norm_eps)
+        if decode:
+            y, _ = L.attn_decode(p["cross"], cfg, h, positions, cache,
+                                 kind="attn_cross", encoder_kv=(
+                                     cache["cross_k"], cache["cross_v"]))
+        else:
+            B, T, _ = enc_out.shape
+            K, hd = cfg.n_kv_heads, cfg.head_dim
+            ek = L.dot(enc_out, p["cross"]["wk"]).reshape(B, T, K, hd)
+            ev = L.dot(enc_out, p["cross"]["wv"]).reshape(B, T, K, hd)
+            if cfg.qkv_bias:
+                ek = ek + p["cross"]["bk"].reshape(K, hd)
+                ev = ev + p["cross"]["bv"].reshape(K, hd)
+            y, _ = L.attn_apply(p["cross"], cfg, h, positions,
+                                kind="attn_cross", encoder_kv=(ek, ev))
+            if make_cache:
+                cache = {**cache, "cross_k": ek, "cross_v": ev}
+        x = x + y
     aux = {}
     if "mlp" in p or "moe" in p:
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
@@ -252,12 +306,15 @@ def _zero_aux(cfg, device):
 
 
 def _run_layers(cfg, params_l, x, positions, *, caches=None, decode=False,
-                make_cache=0):
+                make_cache=0, enc_out=None):
     """Drive the stacked layer groups (``scan``, then ``rem_scan``): a
     loop over each group's stacked index.
 
     Decode updates ``caches`` in place (an RG-LRU block's new state is
-    copied into its stacked slice); prefill with ``make_cache`` > 0
+    copied into its stacked slice; the cross-attention k and v, which a
+    decode step only reads, are never copied, so
+    ``cfg.decode_skip_static_writes`` has nothing left to switch and is
+    kept for ``asdict`` parity); prefill with ``make_cache`` > 0
     writes each layer's cache into a fresh stacked cache.  Returns
     (x, caches or None, aux summed over the layers).
     """
@@ -272,7 +329,8 @@ def _run_layers(cfg, params_l, x, positions, *, caches=None, decode=False,
                     else None
                 x, nc, aux = _apply_block(p_t, cfg, kind, x, positions,
                                           cache=c_t, decode=decode,
-                                          make_cache=make_cache)
+                                          make_cache=make_cache,
+                                          enc_out=enc_out)
                 if not decode:  # decode_step returns no aux
                     aux_tot = {a: v + aux[a] for a, v in aux_tot.items()}
                 if decode or make_cache:
@@ -285,6 +343,29 @@ def _run_layers(cfg, params_l, x, positions, *, caches=None, decode=False,
 def _index(tree, t):
     return {k: (_index(v, t) if isinstance(v, dict) else v[t])
             for k, v in tree.items()}
+
+
+# --------------------------------------------------------------------------
+# encoder (whisper's stub frontend -> transformer encoder)
+# --------------------------------------------------------------------------
+
+def run_encoder(cfg: ArchConfig, params, frames):
+    """frames: (B, encoder_seq, D) precomputed frame embeddings (the
+    reference's stub).  Returns the encoder's output (B, encoder_seq, D)
+    in the model dtype."""
+    x = frames.to(cfg.tdtype)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    enc = params["encoder"]
+    stack = enc["scan"]["pos0"]
+    for t in range(stack["ln1"].shape[0]):
+        p = _index(stack, t)
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        y, _ = L.attn_apply(p["attn"], cfg, h, positions, kind="attn_bidir")
+        x = x + y
+        h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + L.mlp_apply(p["mlp"], h)
+    return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
 # --------------------------------------------------------------------------
@@ -313,23 +394,52 @@ def _head(cfg, params, h):
     return L.softcap(logits, cfg.final_softcap)
 
 
-def forward(cfg: ArchConfig, params, tokens, *, make_cache=0):
+def _add_pos_embed(cfg, params, x, positions):
+    """x + the learned position embeddings, positions past the table
+    clamped to its last row (as the reference does)."""
+    if not cfg.learned_pos_embed:
+        return x
+    return x + params["pos_embed"][
+        positions.clamp(max=cfg.learned_pos_embed - 1)]
+
+
+def forward(cfg: ArchConfig, params, tokens, *, patch_embeds=None,
+            enc_frames=None, make_cache=0):
     """Full-sequence forward from position 0.  Returns (hidden (B,S,D),
-    caches, aux)."""
+    caches, aux).
+
+    pixtral: ``patch_embeds`` (B, vision_tokens, D) fill the first
+    ``vision_tokens`` positions; ``tokens`` then holds the text after
+    them.  whisper: ``enc_frames`` (B, encoder_seq, D) drive the encoder
+    (zeros where absent, for text-only traffic); tokens are decoder ids.
+    """
     x = embed_tokens(cfg, params, tokens)
+    if cfg.vision_tokens and patch_embeds is not None:
+        vis = L.dot(patch_embeds.to(x.dtype), params["vision_proj"])
+        x = torch.cat([vis, x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
+    x = _add_pos_embed(cfg, params, x, positions)
+    enc_out = None
+    if cfg.encoder_layers:
+        if enc_frames is None:
+            enc_frames = torch.zeros((B, cfg.encoder_seq, cfg.d_model),
+                                     dtype=x.dtype, device=x.device)
+        enc_out = run_encoder(cfg, params, enc_frames)
     x, caches, aux = _run_layers(cfg, params["layers"], x, positions,
-                                 make_cache=make_cache)
+                                 make_cache=make_cache, enc_out=enc_out)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, caches, aux
 
 
-def prefill(cfg: ArchConfig, params, tokens, *, cache_len=None):
+def prefill(cfg: ArchConfig, params, tokens, *, cache_len=None,
+            patch_embeds=None, enc_frames=None):
     """Prefill: forward + decode-cache construction.  Returns
-    (last-token logits (B, V), caches, aux)."""
-    cache_len = cache_len or tokens.shape[1]
-    h, caches, aux = forward(cfg, params, tokens, make_cache=cache_len)
+    (last-token logits (B, V), caches, aux).  The cache holds
+    ``cache_len`` slots, by default the prompt and the vision prefix."""
+    cache_len = cache_len or tokens.shape[1] + cfg.vision_tokens
+    h, caches, aux = forward(cfg, params, tokens, patch_embeds=patch_embeds,
+                             enc_frames=enc_frames, make_cache=cache_len)
     return _head(cfg, params, h[:, -1]), caches, aux
 
 
@@ -347,6 +457,7 @@ def decode_step(cfg: ArchConfig, params, token, pos, caches):
     _check_range(pos, min(slots) if slots else 2**31 - 1,
                  "decode position")
     x = embed_tokens(cfg, params, token)
+    x = _add_pos_embed(cfg, params, x, pos[:, None])
     x, caches, _ = _run_layers(cfg, params["layers"], x, pos,
                                caches=caches, decode=True)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -1,6 +1,6 @@
 """Serverless serving engine with SLIMSTART-guided cold starts (PyTorch
 port of ``repro.serving.engine.ServingEngine``: dense, recurrent and MoE
-decoders).
+decoders, pixtral and whisper).
 
 Cold-start anatomy (the Level-B "library loading"):
     import -> config -> weight materialization -> entry-point warm-up
@@ -10,6 +10,17 @@ on first use, exactly like a deferred import), and tracks per-entry
 invocations + per-expert routing mass as the utilization signal for the
 profile-guided optimizer (``engine.report()`` ->
 ``LoadPolicy.from_report``).
+
+Entries, in the reference's order: ``generate`` (prefill + greedy
+decode), ``vision_generate`` (pixtral: the same with ``patch_embeds``
+in front of the prompt), ``transcribe`` (whisper: the same with the
+encoder over ``enc_frames``) and ``score`` (teacher-forced logits).
+``serve(..., extras=)`` takes an entry's extras and fills a missing one
+with zeros, as the reference does; ``generate`` and ``score`` on
+whisper run its encoder on zero frames.  The modality frontends are
+components of group ``frontend`` (``frontend.vision``,
+``frontend.audio_encoder``) with no-op builders, as in the reference,
+materialized on their entry's first use where the policy defers them.
 
 An MoE model's experts are components of their own (``expert.<e>``,
 group ``experts``): ``weights.core`` leaves every expert's FF weights at
@@ -42,6 +53,11 @@ from repro_torch.models.model import (
 from repro_torch.serving.components import (
     Component, ComponentRegistry, LoadPolicy,
 )
+
+
+# the frontend component each entry materializes on first use
+FRONTENDS = {"vision_generate": "frontend.vision",
+             "transcribe": "frontend.audio_encoder"}
 
 
 class ServingEngine:
@@ -89,6 +105,11 @@ class ServingEngine:
             for e in range(moe.n_experts):
                 reg.add(Component(f"expert.{e}", "experts",
                                   partial(self._expert_builder, e)))
+        # the stub frontends: vision_proj is in weights.core and the
+        # encoder runs inside the entries, so the builders do nothing
+        for entry, name in FRONTENDS.items():
+            if entry in self.entries():
+                reg.add(Component(name, "frontend", lambda: True))
         # per-entry warm-ups (the Level-B analogue of importing the
         # module that serves this handler)
         for entry in self.entries():
@@ -96,7 +117,36 @@ class ServingEngine:
                               partial(self._compile_entry, entry)))
 
     def entries(self) -> list[str]:
-        return ["generate", "score"]  # score: rarely-hit teacher forcing
+        cfg = self.cfg
+        out = ["generate"]
+        if cfg.vision_tokens:
+            out.append("vision_generate")
+        if cfg.encoder_layers:
+            out.append("transcribe")
+        out.append("score")  # rarely-hit teacher forcing
+        return out
+
+    def _entry_shapes(self, entry: str) -> dict:
+        """The extras ``entry`` takes: {name: (shape, dtype)}."""
+        cfg, B = self.cfg, self.B
+        if entry == "vision_generate" and cfg.vision_tokens:
+            return {"patch_embeds": ((B, cfg.vision_tokens, cfg.d_model),
+                                     cfg.tdtype)}
+        if entry == "transcribe" and cfg.encoder_layers:
+            return {"enc_frames": ((B, cfg.encoder_seq, cfg.d_model),
+                                   cfg.tdtype)}
+        return {}
+
+    def _extras(self, entry: str, given: Optional[dict]) -> dict:
+        """The given extras on the device in the model dtype, and zeros
+        for each of the entry's extras not given."""
+        out = {k: torch.as_tensor(np.asarray(v), dtype=self.cfg.tdtype,
+                                  device=self.device)
+               for k, v in (given or {}).items()}
+        for k, (shape, dtype) in self._entry_shapes(entry).items():
+            if k not in out:
+                out[k] = torch.zeros(shape, dtype=dtype, device=self.device)
+        return out
 
     # ---------------------------------------------------------- experts
     def _expert_builder(self, e: int):
@@ -130,6 +180,7 @@ class ServingEngine:
         params = self._ensure_params()
         toks = torch.zeros((self.B, self.prefill_len), dtype=torch.int32,
                            device=self.device)
+        cache_len = self.max_len + cfg.vision_tokens
 
         if entry == "score":
             def score_fn(params, tokens):
@@ -138,9 +189,9 @@ class ServingEngine:
             score_fn(params, toks)
             return {"score": score_fn}
 
-        def prefill_fn(params, tokens):
+        def prefill_fn(params, tokens, extra):
             logits, caches, aux = prefill(cfg, params, tokens,
-                                          cache_len=self.max_len)
+                                          cache_len=cache_len, **extra)
             nxt = logits.argmax(dim=-1).to(torch.int32)
             return nxt, caches, aux.get("expert_load")
 
@@ -148,11 +199,17 @@ class ServingEngine:
             logits, caches = decode_step(cfg, params, token, pos, caches)
             return logits.argmax(dim=-1).to(torch.int32)[:, None], caches
 
-        nxt, caches, _ = prefill_fn(params, toks)
-        pos = torch.full((self.B,), self.prefill_len, dtype=torch.int32,
-                         device=self.device)
+        nxt, caches, _ = prefill_fn(params, toks, self._extras(entry, None))
+        pos = torch.full((self.B,), self._pos0(entry, self.prefill_len),
+                         dtype=torch.int32, device=self.device)
         decode_fn(params, nxt[:, None], pos, caches)
         return {"prefill": prefill_fn, "decode": decode_fn}
+
+    def _pos0(self, entry: str, prompt_len: int) -> int:
+        """The first decode position: after the prompt and, for
+        ``vision_generate``, the vision prefix."""
+        vt = self.cfg.vision_tokens if entry == "vision_generate" else 0
+        return prompt_len + vt
 
     def _ensure_params(self):
         if self._params is None:
@@ -170,16 +227,20 @@ class ServingEngine:
         return self.cold_start_s
 
     def serve(self, entry: str, tokens: np.ndarray, *,
-              max_new_tokens: int = 8):
+              max_new_tokens: int = 8, extras: Optional[dict] = None):
         """Serve one batched request; returns (tokens_out, latency_s).
 
-        ``generate`` returns the greedy tokens (B, max_new_tokens);
-        ``score`` returns the fp32 logits of every position (B, S, V).
+        ``generate``, ``vision_generate`` and ``transcribe`` return the
+        greedy tokens (B, max_new_tokens); ``score`` returns the fp32
+        logits of every position (B, S, V).  ``extras``: the entry's
+        ``patch_embeds`` or ``enc_frames`` (zeros where absent).
         """
         t0 = time.perf_counter()
         self.entry_counts[entry] = self.entry_counts.get(entry, 0) + 1
         params = self._ensure_params()
         exes = self.registry[f"compile.{entry}"].get()
+        if entry in FRONTENDS:
+            self.registry[FRONTENDS[entry]].get()
         self.registry["weights.core"].uses += 1  # every request hits them
         toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int32,
                                device=self.device)
@@ -187,10 +248,11 @@ class ServingEngine:
             out = exes["score"](params, toks).cpu().numpy()
             return out, time.perf_counter() - t0
 
-        nxt, caches, load = exes["prefill"](params, toks)
+        nxt, caches, load = exes["prefill"](params, toks,
+                                            self._extras(entry, extras))
         if load is not None:
             self._account_experts(load.cpu().numpy())
-        pos0 = toks.shape[1]
+        pos0 = self._pos0(entry, toks.shape[1])
         out = [nxt]
         tok = nxt[:, None]
         for i in range(max_new_tokens - 1):

@@ -37,7 +37,8 @@ def test_config_asdict_matches_reference(arch):
 
 @pytest.mark.parametrize("arch", ["granite-8b", "qwen2.5-32b",
                                   "recurrentgemma-2b",
-                                  "granite-moe-1b-a400m", "olmoe-1b-7b"])
+                                  "granite-moe-1b-a400m", "olmoe-1b-7b",
+                                  "whisper-large-v3", "pixtral-12b"])
 def test_param_count_matches_reference(arch):
     assert t_param_count(tcfgs.get_config(arch)) == \
         j_param_count(jcfgs.get_config(arch))

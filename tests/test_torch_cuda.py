@@ -30,9 +30,10 @@ from repro_torch.models import model as M  # noqa: E402
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
-# decode's outputs are averages over many slots, |o| ~ sqrt(e / n_valid)
-# (0.036 at 2048 slots), so its bf16 limit is held to the output's scale:
-# a split of the combine read stale or left out moves o by ~0.01
+# decode's outputs, and those of flash with no mask, are averages over
+# many keys, |o| ~ sqrt(e / n_keys) (0.036 at 2048 slots, 0.043 at 1500
+# frames), so their bf16 limit is held to the output's scale: a split of
+# the combine read stale or left out, or a key tile lost, moves o by ~0.01
 DECODE_TOL = {torch.float32: TOL[torch.float32],
               torch.bfloat16: dict(rtol=2e-2, atol=5e-3)}
 
@@ -72,6 +73,15 @@ def _rand(rng, shape, dtype, device):
     # granite-moe: hd 64, G 2, its prefill shape and a ragged one
     (4, 16, 8, 512, 512, 64, True, None, None, "model"),
     (1, 4, 2, 130, 130, 64, True, None, None, "bhsd"),
+    # whisper: hd 64, G 1 -- the encoder over 1500 frames with no mask
+    # (12 q tiles, the last of 92 rows), the decoder's causal prefill,
+    # cross attention (Sq 224, Skv 1500) and a small ragged case;
+    # pixtral: hd 128, G 4, its 768-token vision prefill
+    (4, 20, 20, 1500, 1500, 64, False, None, None, "model"),
+    (4, 20, 20, 224, 224, 64, True, None, None, "model"),
+    (4, 20, 20, 224, 1500, 64, False, None, None, "bhsd"),
+    (2, 4, 4, 150, 70, 64, False, None, None, "bhsd"),
+    (4, 32, 8, 768, 768, 128, True, None, None, "model"),
 ])
 def test_flash_kernel_matches_plain(cuda, B, H, K, Sq, Skv, hd, causal,
                                     window, cap, layout, dtype):
@@ -91,8 +101,9 @@ def test_flash_kernel_matches_plain(cuda, B, H, K, Sq, Skv, hd, causal,
     got = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_attention.launches == n0 + 1
+    # with no mask every row averages over all Skv keys
     torch.testing.assert_close(got.float(), flash_attention_plain(
-        q, k, v, **kw).float(), **TOL[dtype])
+        q, k, v, **kw).float(), **(TOL if causal else DECODE_TOL)[dtype])
 
 
 @pytest.mark.parametrize("which,hd", [("k", 16), ("q", 128)])
@@ -171,6 +182,8 @@ def test_decode_kernel_rejects_misaligned_rows(cuda, which, dtype, hd):
     # granite-moe: hd 64, G 2, its decode shape and a ragged one
     (4, 8, 2, 640, 64, None, None, False),
     (2, 2, 2, 77, 64, None, None, False),
+    # whisper's self decode: hd 64, G 1 over its 448-slot cache
+    (4, 20, 1, 448, 64, None, None, False),
 ])
 def test_decode_kernel_matches_plain(cuda, B, K, G, S, hd, window, cap,
                                      ring, dtype):
@@ -183,6 +196,34 @@ def test_decode_kernel_matches_plain(cuda, B, K, G, S, hd, window, cap,
     assert decode_attention.launches == n0 + 1
     torch.testing.assert_close(got.float(), decode_attention_plain(
         *args, **kw).float(), **DECODE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,G,S,hd,q_pos", [
+    (4, 20, 1, 1500, 64, 224),  # whisper's cross decode: 46 tiles and 28
+    (2, 2, 1, 77, 64, 3),       # slots, 80 (b, kv-head) pairs
+    (1, 3, 1, 45, 16, 0),
+    (2, 2, 4, 100, 128, 5),
+])
+def test_decode_kernel_all_valid_cache(cuda, B, K, G, S, hd, q_pos, dtype):
+    """Cross-attention decode: every slot of a cache whose length is not
+    a multiple of the 32-slot tile is kept (slot positions 0, the
+    decode position below the cache length)."""
+    rng = np.random.default_rng(S + hd + 1)
+    q = _rand(rng, (B, K, G, hd), dtype, cuda)
+    k = _rand(rng, (B, S, K, hd), dtype, cuda).transpose(1, 2)
+    v = _rand(rng, (B, S, K, hd), dtype, cuda).transpose(1, 2)
+    qp = torch.full((B,), q_pos, dtype=torch.int32, device=cuda)
+    kv_pos = torch.zeros((B, S), dtype=torch.int32, device=cuda)
+    got = decode_attention(q, k, v, qp, kv_pos)
+    torch.cuda.synchronize()
+    want = decode_attention_plain(q, k, v, qp, kv_pos)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **DECODE_TOL[dtype])
+    # the plain version keeps every slot: it is softmax attention over all
+    s = torch.einsum("bkgd,bksd->bkgs", q.float(), k.float()) * hd ** -0.5
+    full = torch.einsum("bkgs,bksd->bkgd", s.softmax(-1), v.float())
+    torch.testing.assert_close(want.float(), full, **DECODE_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype,hd", [(torch.float32, 16),
@@ -320,9 +361,14 @@ def test_rglru_kernel_unaligned_start(cuda, dtype):
 @pytest.mark.parametrize("arch,n_dec", [("granite-8b", 5),
                                         ("recurrentgemma-2b", 20),
                                         ("granite-moe-1b-a400m", 5),
-                                        ("olmoe-1b-7b", 5)])
+                                        ("olmoe-1b-7b", 5),
+                                        ("whisper-large-v3", 5),
+                                        ("pixtral-12b", 5)])
 def test_reduced_model_cuda_matches_cpu(cuda, arch, n_dec):
-    """recurrentgemma decodes past its window of 16, so the ring wraps."""
+    """recurrentgemma decodes past its window of 16, so the ring wraps;
+    whisper runs its encoder over random frames and decodes through the
+    cross-attention cache, pixtral prefills behind random patch
+    embeddings."""
     cfg = get_reduced(arch)
     params = M.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
 
@@ -330,18 +376,28 @@ def test_reduced_model_cuda_matches_cpu(cuda, arch, n_dec):
         return {k: to(v) if isinstance(v, dict) else v.to(cuda)
                 for k, v in tree.items()}
     gparams = to(params)
-    B, T0 = 2, 8
-    toks = torch.from_numpy(np.random.default_rng(2).integers(
+    B, T0, vt = 2, 8, cfg.vision_tokens
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(
         0, cfg.vocab, (B, T0 + n_dec)).astype(np.int32))
-    lc, cc, ac = M.prefill(cfg, params, toks[:, :T0], cache_len=T0 + n_dec)
+    ex = {}
+    if cfg.vision_tokens:
+        ex["patch_embeds"] = (B, vt, cfg.d_model)
+    if cfg.encoder_layers:
+        ex["enc_frames"] = (B, cfg.encoder_seq, cfg.d_model)
+    ex = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+          for k, s in ex.items()}
+    lc, cc, ac = M.prefill(cfg, params, toks[:, :T0],
+                           cache_len=vt + T0 + n_dec, **ex)
     lg, cg, ag = M.prefill(cfg, gparams, toks[:, :T0].to(cuda),
-                           cache_len=T0 + n_dec)
+                           cache_len=vt + T0 + n_dec,
+                           **{k: v.to(cuda) for k, v in ex.items()})
     torch.testing.assert_close(lg.cpu(), lc, rtol=2e-3, atol=2e-3)
     assert ag.keys() == ac.keys()
     for k in ac:  # MoE: router load and loss
         torch.testing.assert_close(ag[k].cpu(), ac[k], rtol=1e-5, atol=1e-5)
     for i in range(n_dec):
-        pos = torch.full((B,), T0 + i, dtype=torch.int32)
+        pos = torch.full((B,), vt + T0 + i, dtype=torch.int32)
         tok = toks[:, T0 + i:T0 + i + 1]
         lc, cc = M.decode_step(cfg, params, tok, pos, cc)
         lg, cg = M.decode_step(cfg, gparams, tok.to(cuda), pos.to(cuda), cg)

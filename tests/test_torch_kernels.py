@@ -79,7 +79,10 @@ def _np(x):
         (1, 2, 2, 33, 33, 16, True, None, 30.0),      # softcap + ragged
         (1, 2, 2, 16, 80, 16, False, None, None),     # bidir, Sq != Skv
         (1, 10, 1, 40, 40, 256, True, 16, None),      # recurrentgemma:
-    ])                                                # hd 256, G 10, window
+        # hd 256, G 10, window; whisper's cross attention: G 1, no mask,
+        # Sq != Skv, both ragged against the blocks
+        (2, 4, 4, 20, 36, 64, False, None, None),
+    ])
 def test_flash_plain_vs_pallas(B, H, K, Sq, Skv, hd, causal, window, cap,
                                dtype):
     rng = np.random.default_rng(B * 1000 + Sq + Skv)

@@ -1,5 +1,6 @@
 """PyTorch port: the Level-B serving launcher (``repro_torch.launch.serve``)
-against ``repro.launch.serve`` on reduced granite-moe-1b-a400m, on the
+against ``repro.launch.serve`` on reduced granite-moe-1b-a400m (and
+the bench's other two archs, whisper-large-v3 and pixtral-12b), on the
 CPU (device="cpu")."""
 
 import json
@@ -79,3 +80,24 @@ def test_main_prints_reference_keys(monkeypatch, capsys):
     assert got["by_group"].keys() == want["by_group"].keys()
     for key in ("arch", "policy", "entry_counts"):
         assert got[key] == want[key]
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "pixtral-12b"])
+def test_main_serves_frontend_archs(arch, monkeypatch, capsys):
+    """The bench's other two archs through ``main`` as they are: every
+    entry of the workload served (the frontend entries with zero
+    extras), with the reference launcher's keys and entry counts."""
+    serve.main(["--arch", arch, "--device", "cpu", "--requests", "12",
+                "--policy", "lazy", "--seed", "1"])
+    got = json.loads(capsys.readouterr().out)
+    monkeypatch.setattr("sys.argv", ["serve", "--arch", arch, "--requests",
+                                     "12", "--policy", "lazy", "--seed",
+                                     "1"])
+    jserve.main()
+    want = json.loads(capsys.readouterr().out)
+    assert got.keys() == want.keys()
+    assert got["by_group"].keys() == want["by_group"].keys() == \
+        {"weights", "frontend", "compile"}
+    for key in ("arch", "policy", "entry_counts"):
+        assert got[key] == want[key]
+    assert len(got["entry_counts"]) > 1  # a frontend entry was served

@@ -1,7 +1,9 @@
-"""PyTorch port: the decoders (dense, recurrent, MoE) against
-``repro.models`` on reduced configs, with the reference's weights carried
-over (JAX init_params -> numpy -> repro_torch.models.convert), plus the
-numerics the port pins.
+"""PyTorch port: the models (dense, recurrent, MoE, pixtral's vision
+prefix, whisper's encoder and cross attention) against ``repro.models``
+on reduced configs, with the reference's weights carried over (JAX
+init_params -> numpy -> repro_torch.models.convert), plus the numerics
+the port pins.  pixtral's ``patch_embeds`` and whisper's ``enc_frames``
+are drawn with numpy from a seed.
 
 Deliberate differences from the reference (the first and the last are
 pinned by tests below):
@@ -37,7 +39,9 @@ TOL = dict(rtol=2e-3, atol=2e-3)
 ARCHS = ["granite-8b", "qwen2.5-32b",  # qwen: qkv bias, untied head
          "recurrentgemma-2b",  # rglru + attn_local, rem_scan group
          "granite-moe-1b-a400m",  # MoE, tied head
-         "olmoe-1b-7b"]  # MoE with qk_norm, untied head
+         "olmoe-1b-7b",  # MoE with qk_norm, untied head
+         "whisper-large-v3",  # encoder, cross attention, learned positions
+         "pixtral-12b"]  # vision prefix through vision_proj
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -53,6 +57,26 @@ def _np(x):
     if isinstance(x, torch.Tensor):
         return x.float().numpy()
     return np.asarray(x, np.float32)
+
+
+def _extras(cfg, B, seed):
+    """The config's frontend inputs as numpy, drawn from ``seed``:
+    pixtral's patch_embeds, whisper's enc_frames ({} for the others)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.vision_tokens:
+        out["patch_embeds"] = rng.standard_normal(
+            (B, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.encoder_layers:
+        out["enc_frames"] = rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _both(extras):
+    """The same extras as jax arrays and as torch tensors."""
+    return ({k: jnp.asarray(v) for k, v in extras.items()},
+            {k: torch.from_numpy(v) for k, v in extras.items()})
 
 
 def _leaves(tree, prefix=""):
@@ -92,17 +116,19 @@ def test_forward_prefill_decode_match_reference(pair):
     total = T0 + n_dec
     toks = np.random.default_rng(2).integers(
         0, jcfg.vocab, (B, total)).astype(np.int32)
+    jex, tex = _both(_extras(jcfg, B, 4))
+    vt = jcfg.vision_tokens  # the vision prefix's positions come first
 
-    jh, _, jaux = JM.forward(jcfg, jparams, jnp.asarray(toks))
-    th, _, taux = TM.forward(tcfg, tparams, torch.from_numpy(toks))
+    jh, _, jaux = JM.forward(jcfg, jparams, jnp.asarray(toks), **jex)
+    th, _, taux = TM.forward(tcfg, tparams, torch.from_numpy(toks), **tex)
     np.testing.assert_allclose(_np(th), _np(jh), **TOL,
                                err_msg=f"{arch}: forward hidden")
     _check_aux(taux, jaux, f"{arch}: forward aux")
 
     jl, jc, jaux = JM.prefill(jcfg, jparams, jnp.asarray(toks[:, :T0]),
-                              cache_len=total)
+                              cache_len=vt + total, **jex)
     tl, tc, taux = TM.prefill(tcfg, tparams, torch.from_numpy(toks[:, :T0]),
-                              cache_len=total)
+                              cache_len=vt + total, **tex)
     assert tl.dtype == torch.float32
     np.testing.assert_allclose(_np(tl), _np(jl), **TOL,
                                err_msg=f"{arch}: prefill logits")
@@ -115,7 +141,7 @@ def test_forward_prefill_decode_match_reference(pair):
                                    err_msg=f"{arch}: cache {name}")
 
     for i in range(n_dec):
-        pos = np.full((B,), T0 + i, np.int32)
+        pos = np.full((B,), vt + T0 + i, np.int32)
         tok = toks[:, T0 + i:T0 + i + 1]
         jl, jc = JM.decode_step(jcfg, jparams, jnp.asarray(tok),
                                 jnp.asarray(pos), jc)
@@ -137,18 +163,139 @@ def test_prefill_decode_matches_forward(pair):
     B, T0, n_dec = 2, 8, 5
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, tcfg.vocab, (B, T0 + n_dec)).astype(np.int32))
-    h, _, _ = TM.forward(tcfg, tparams, toks)
-    full = _np(TM._head(tcfg, tparams, h))
+    _, ex = _both(_extras(tcfg, B, 5))
+    vt = tcfg.vision_tokens
+    h, _, _ = TM.forward(tcfg, tparams, toks, **ex)
+    full = _np(TM._head(tcfg, tparams, h))[:, vt:]  # the text positions
     logits, caches, _ = TM.prefill(tcfg, tparams, toks[:, :T0],
-                                   cache_len=T0 + n_dec)
+                                   cache_len=vt + T0 + n_dec, **ex)
     np.testing.assert_allclose(_np(logits), full[:, T0 - 1], **TOL)
     for i in range(n_dec):
-        pos = torch.full((B,), T0 + i, dtype=torch.int32)
+        pos = torch.full((B,), vt + T0 + i, dtype=torch.int32)
         logits, caches = TM.decode_step(tcfg, tparams,
                                         toks[:, T0 + i:T0 + i + 1], pos,
                                         caches)
         np.testing.assert_allclose(_np(logits), full[:, T0 + i], **TOL,
                                    err_msg=f"{arch}: decode step {i}")
+
+
+# ------------------------------------------------------------ frontends
+def _carried(arch, **kw):
+    """(jcfg, tcfg, jparams, tparams) of the reduced arch (with ``kw``
+    changes), the reference's weights carried into the port."""
+    jcfg, tcfg = j_reduced(arch).with_(**kw), t_reduced(arch).with_(**kw)
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(3))
+    tparams = from_numpy_tree(jax.tree.map(np.asarray, jparams), "cpu")
+    return jcfg, tcfg, jparams, tparams
+
+
+def test_run_encoder_matches_reference():
+    """whisper's encoder alone: bidirectional attention (no rope, no
+    mask) over random frames, each layer's MLP, the final norm."""
+    jcfg, tcfg, jparams, tparams = _carried("whisper-large-v3")
+    frames = _extras(jcfg, 2, 6)["enc_frames"]
+    want = JM.run_encoder(jcfg, jparams, jnp.asarray(frames))
+    got = TM.run_encoder(tcfg, tparams, torch.from_numpy(frames))
+    assert tuple(got.shape) == (2, jcfg.encoder_seq, jcfg.d_model)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+def test_cross_decode_keeps_frames_past_the_position():
+    """One cross-attention decode step at positions far below
+    encoder_seq - 1 attends over every frame, as the reference's
+    unmasked attention does (slot positions 0..T-1 against the decode
+    position would drop the frames past it), with a query bias and the
+    encoder's k and v as the reference hands them over."""
+    jcfg, tcfg, _, _ = _carried("whisper-large-v3")
+    rng = np.random.default_rng(12)
+    B, T, K, hd = 2, jcfg.encoder_seq, jcfg.n_kv_heads, jcfg.head_dim
+    p = {k: rng.standard_normal(s.shape).astype(np.float32) * 0.3
+         for k, s in TL.attn_template(tcfg).items()}
+    x = rng.standard_normal((B, 1, jcfg.d_model)).astype(np.float32)
+    ek = rng.standard_normal((B, T, K, hd)).astype(np.float32)
+    ev = rng.standard_normal((B, T, K, hd)).astype(np.float32)
+    pos = np.array([0, 3], np.int32)
+    assert pos.max() < T - 1
+    want, _ = JL.attn_decode(jax.tree.map(jnp.asarray, p), jcfg,
+                             jnp.asarray(x), jnp.asarray(pos), {},
+                             kind="attn_cross", encoder_kv=(
+                                 jnp.asarray(ek), jnp.asarray(ev)))
+    cache = {}
+    got, kept = TL.attn_decode(from_numpy_tree(p, "cpu"), tcfg,
+                               torch.from_numpy(x), torch.from_numpy(pos),
+                               cache, kind="attn_cross", encoder_kv=(
+                                   torch.from_numpy(ek),
+                                   torch.from_numpy(ev)))
+    assert kept is cache
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+    # the whole model: decode steps at positions 2..4 of 24 frames
+    jcfg, tcfg, jparams, tparams = _carried("whisper-large-v3")
+    toks = rng.integers(0, jcfg.vocab, (B, 5)).astype(np.int32)
+    jex, tex = _both(_extras(jcfg, B, 13))
+    _, jc, _ = JM.prefill(jcfg, jparams, jnp.asarray(toks[:, :2]),
+                          cache_len=8, **jex)
+    _, tc, _ = TM.prefill(tcfg, tparams, torch.from_numpy(toks[:, :2]),
+                          cache_len=8, **tex)
+    for i in range(2, 5):
+        pos = np.full((B,), i, np.int32)
+        jl, jc = JM.decode_step(jcfg, jparams, jnp.asarray(toks[:, i:i + 1]),
+                                jnp.asarray(pos), jc)
+        tl, tc = TM.decode_step(tcfg, tparams, torch.from_numpy(
+            toks[:, i:i + 1]), torch.from_numpy(pos), tc)
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL,
+                                   err_msg=f"decode position {i}")
+
+
+def test_learned_positions_clamp_past_the_table():
+    """Positions past ``learned_pos_embed`` take its last row, in the
+    forward and in decode, as the reference's explicit clamp does."""
+    jcfg, tcfg, jparams, tparams = _carried("whisper-large-v3",
+                                            learned_pos_embed=4)
+    B, T0 = 2, 6
+    toks = np.random.default_rng(14).integers(
+        0, jcfg.vocab, (B, T0 + 3)).astype(np.int32)
+    jex, tex = _both(_extras(jcfg, B, 15))
+    jh, _, _ = JM.forward(jcfg, jparams, jnp.asarray(toks), **jex)
+    th, _, _ = TM.forward(tcfg, tparams, torch.from_numpy(toks), **tex)
+    np.testing.assert_allclose(_np(th), _np(jh), **TOL)
+    _, jc, _ = JM.prefill(jcfg, jparams, jnp.asarray(toks[:, :T0]),
+                          cache_len=T0 + 3, **jex)
+    _, tc, _ = TM.prefill(tcfg, tparams, torch.from_numpy(toks[:, :T0]),
+                          cache_len=T0 + 3, **tex)
+    for i in range(T0, T0 + 3):  # all past the 4-row table
+        pos = np.full((B,), i, np.int32)
+        jl, jc = JM.decode_step(jcfg, jparams, jnp.asarray(toks[:, i:i + 1]),
+                                jnp.asarray(pos), jc)
+        tl, tc = TM.decode_step(tcfg, tparams, torch.from_numpy(
+            toks[:, i:i + 1]), torch.from_numpy(pos), tc)
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL,
+                                   err_msg=f"decode position {i}")
+    x = TM._add_pos_embed(tcfg, tparams, torch.zeros((1, 2, tcfg.d_model)),
+                          torch.tensor([[3, 40]]))
+    np.testing.assert_array_equal(_np(x[0, 1]), _np(tparams["pos_embed"][3]))
+
+
+def test_vision_prefix_fills_the_first_positions():
+    """pixtral's prefill with patch embeddings: vision_proj of them sits
+    in front of the text (positions 0..vt-1 of the cache), the logits
+    and every cache leaf match the reference, and the prefix changes the
+    text's logits."""
+    jcfg, tcfg, jparams, tparams = _carried("pixtral-12b")
+    B, T0, vt = 2, 5, jcfg.vision_tokens
+    toks = np.random.default_rng(16).integers(
+        0, jcfg.vocab, (B, T0)).astype(np.int32)
+    jex, tex = _both(_extras(jcfg, B, 17))
+    jl, jc, _ = JM.prefill(jcfg, jparams, jnp.asarray(toks), **jex)
+    tl, tc, _ = TM.prefill(tcfg, tparams, torch.from_numpy(toks), **tex)
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    jcn = dict(_leaves(jax.tree.map(np.asarray, jc)))
+    for name, arr in _leaves(to_numpy_tree(tc)):
+        np.testing.assert_allclose(arr, jcn[name], **TOL, err_msg=name)
+    pos = tc["scan"]["pos0"]["pos"]
+    assert tuple(pos.shape) == (jcfg.n_layers, B, vt + T0)  # default length
+    np.testing.assert_array_equal(_np(pos[0, 0]), np.arange(vt + T0))
+    text_only, _, _ = TM.prefill(tcfg, tparams, torch.from_numpy(toks))
+    assert np.abs(_np(text_only) - _np(tl)).max() > 1e-3
 
 
 @pytest.mark.parametrize("T0", [4, 20])  # 20 > window: the rolled ring
@@ -358,9 +505,7 @@ def test_bf16_head_gives_fp32_logits():
     assert TM._head(tcfg, params, h).dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-27b",
-                                  "whisper-large-v3", "pixtral-12b",
-                                  "xlstm-350m"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-27b", "xlstm-350m"])
 def test_unported_configs_raise(arch):
     with pytest.raises(NotImplementedError):
         TM.model_template(t_reduced(arch))

@@ -1,6 +1,8 @@
 """PyTorch port: ServingEngine against ``repro.serving.ServingEngine``
-on reduced configs (dense granite-8b, hybrid recurrentgemma-2b and MoE
-granite-moe-1b-a400m), on the CPU (device="cpu").
+on reduced configs (dense granite-8b, hybrid recurrentgemma-2b, MoE
+granite-moe-1b-a400m, whisper-large-v3 and pixtral-12b), on the CPU
+(device="cpu").  whisper's ``transcribe`` and pixtral's
+``vision_generate`` get random extras, drawn with numpy from a seed.
 
 A reference quirk the port keeps, for parity: a request's prefill runs
 before the experts it routed to are materialized, so under a lazy
@@ -54,7 +56,8 @@ def test_lazy_compile_materializes_on_first_use():
     assert not eng.registry["compile.score"].ready
 
 
-@pytest.fixture(scope="module", params=["granite-8b", "recurrentgemma-2b"])
+@pytest.fixture(scope="module", params=["granite-8b", "recurrentgemma-2b",
+                                        "whisper-large-v3", "pixtral-12b"])
 def engines(request):
     """The reference engine and the port's, on the reference's weights
     (carried over by swapping the port's weights.core builder)."""
@@ -77,6 +80,30 @@ def test_generate_gives_reference_tokens(engines):
     got, lat = teng.serve("generate", toks, max_new_tokens=6)
     assert lat > 0
     np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_every_entry_gives_reference_tokens(engines):
+    """Every generating entry, in the reference's order, with random
+    extras (whisper's frames, pixtral's patch embeddings), and each
+    extra left out (zeros), against the reference engine's tokens."""
+    jeng, teng = engines
+    assert teng.entries() == jeng.entries()
+    rng = np.random.default_rng(3)
+    for entry in teng.entries():
+        if entry == "score":
+            continue
+        shapes = teng._entry_shapes(entry)
+        given = {k: rng.standard_normal(shape).astype(np.float32)
+                 for k, (shape, _) in shapes.items()}
+        for extras in ([given, None] if given else [None]):
+            toks = rng.integers(0, jeng.cfg.vocab, (2, 8))
+            want, _ = jeng.serve(entry, toks, max_new_tokens=5,
+                                 extras=extras)
+            got, _ = teng.serve(entry, toks, max_new_tokens=5,
+                                extras=extras)
+            np.testing.assert_array_equal(
+                got, np.asarray(want),
+                err_msg=f"{entry} with {sorted(extras or {})}")
 
 
 def test_score_matches_reference(engines):
@@ -103,9 +130,34 @@ def test_engine_without_cuda_raises(monkeypatch):
         ServingEngine(t_reduced("granite-8b"))
 
 
-def test_engine_rejects_unported_config():
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-27b", "xlstm-350m"])
+def test_engine_rejects_unported_config(arch):
     with pytest.raises(NotImplementedError):
-        ServingEngine(t_reduced("whisper-large-v3"), device="cpu")
+        ServingEngine(t_reduced(arch), device="cpu")
+
+
+def test_lazy_policy_defers_and_first_use_pays():
+    """The port's twin of tests/test_serving.py's whisper test: under a
+    lazy compile + frontend policy the cold start is shorter, and the
+    first ``transcribe`` materializes its warm-up and the audio
+    frontend (and nothing else)."""
+    cfg = t_reduced("whisper-large-v3")
+    kw = dict(batch_size=1, prefill_len=8, max_len=24, device="cpu")
+    lazy = LoadPolicy(lazy_groups=frozenset({"compile", "frontend"}))
+    eng = ServingEngine(cfg, policy=lazy, **kw)
+    cold_lazy = eng.cold_start()
+    eager = ServingEngine(cfg, **kw)
+    cold_eager = eager.cold_start()
+    assert cold_lazy < cold_eager, \
+        "deferring the warm-ups must shrink the cold start"
+    assert all(c.ready for c in eager.registry.values())
+    assert [c.name for c in eng.registry.values() if c.ready] == \
+        ["weights.core"]
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (1, 8))
+    out, lat = eng.serve("transcribe", toks, max_new_tokens=3)
+    assert out.shape == (1, 3) and lat > 0
+    assert [c.name for c in eng.registry.values() if c.ready] == \
+        ["weights.core", "frontend.audio_encoder", "compile.transcribe"]
 
 
 # ----------------------------------------------------------------- MoE
