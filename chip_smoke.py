@@ -62,7 +62,14 @@ Phases, each raising on failure (the script then exits non-zero):
               read just after (counted per entry: a prefill or forward
               launches flash once per attention layer, cross-attention
               layer and encoder layer, a decode step decode once per
-              attention and cross-attention layer);
+              attention and cross-attention layer).  Every decode step
+              replays the entry's CUDA graph (captured in
+              ``compile.<entry>``); a replay adds to each wrapper's count
+              the launches its capture recorded (the capture itself adds
+              none), so the counts stay exact.  Then each generating
+              entry's graph against the same engine's eager step on the
+              same prefill: logits within 2e-3 of their scale and
+              identical greedy tokens over the 15 steps;
 5b. launcher -- the reference bench's archs (granite-moe-1b-a400m,
               whisper-large-v3, pixtral-12b) through
               ``repro_torch.launch.serve.run_service`` at their full-width
@@ -70,9 +77,24 @@ Phases, each raising on failure (the script then exits non-zero):
               eager run's report) on the bench's skewed workload of 24
               requests: cold start by group, deferred components, the
               first hot request's latency, the trace's end-to-end time;
+5c. pool    -- EnginePool over full-width granite-8b, granite-moe-1b-
+              a400m, whisper-large-v3 and pixtral-12b (batch 4, the phase-5
+              sizes), max_warm 2, a seeded sequence of 10 ``generate``
+              dispatches (two passes over the four models): paths, victims,
+              hits, misses and evictions against the policy; device memory
+              after each eviction against what the warm engines held at
+              admission; no growth from pass 1 to pass 2; exact launches;
+              ``rewarm()``; then queue_depth 2 with 5 threads on one cold
+              model (1 build, 2 queued, 2 shed);
+5d. batcher -- ContinuousBatcher on full-width granite-8b (4 slots, cache
+              640, 12 requests of 64-512 prompt and 4-16 new tokens),
+              graphed decode against eager decode: identical tokens, exact
+              launches, steps and latencies;
 6. breakdown -- for information, after each path: prefill and
-              decode-step times, and a torch.profiler trace of one
-              request (device busy share, kernel time by kind): a
+              decode-step times with the decode graph (the prefill into
+              its static caches) and with the eager step, each request's
+              wall time, and a torch.profiler trace of one graphed and one
+              eager request (device busy share, kernel time by kind): a
               ``generate``, or on pixtral and whisper a ``vision_generate``
               / ``transcribe`` with random extras; for granite-moe also
               one ``moe_apply`` alone at the prefill (4 x 512) and decode
@@ -839,9 +861,19 @@ def phase_serve(arch, entries):
         f"{cfg.vision_tokens} vision slots), {NEW} new tokens; requests "
         f"{requests}")
     log(f"[serve] {arch} cold_start_s {cold:.4f} by_group "
-        f"{rep['by_group']}")
+        f"{rep['by_group']} (compile includes each decode graph's "
+        f"capture)")
     for row in rep["components"]:
         log(f"[serve]   {row['component']}: init_s {row['init_s']}")
+    for entry in eng.entries():
+        graph = eng.registry[f"compile.{entry}"].value.get("graph")
+        if entry != "score":
+            if graph is None:
+                raise RuntimeError(f"{arch} {entry}: no decode graph")
+            log(f"[serve]   compile.{entry}: decode graph warm-up + "
+                f"capture {graph.capture_s:.4f} s, "
+                f"{graph.launches()['decode_attention']} decode launches "
+                f"a replay")
 
     counters = _kernel_counters()
     rng = np.random.default_rng(7)
@@ -908,7 +940,57 @@ def phase_serve(arch, entries):
         f"{rel:.3e} ({cfg.dtype})")
     for e in entries:
         e["launches"] = got[e["name"]]
+    counts = {name: fn.launches for name, fn in counters.items()}
+    for entry in eng.entries():
+        if entry != "score":
+            check_graph_vs_eager(eng, entry, rng)
+    for name, fn in counters.items():  # the checks are not the path's
+        fn.launches = counts[name]
     return eng
+
+
+def check_graph_vs_eager(eng, entry, rng):
+    """The entry's decode graph against the same engine's eager decode
+    step on the same prefill (one into the graph's static caches, one
+    into a fresh cache tree), over the path's 15 decode steps: logits
+    within MODEL_TOL (atol held to the logits' scale) and identical
+    greedy tokens."""
+    import torch
+    from repro_torch.models import model as M
+    cfg, B, spec = eng.cfg, eng.B, PATHS[eng.cfg.name]
+    P, NEW = spec["prefill"], spec["new"]
+    graph = eng.registry[f"compile.{entry}"].value["graph"]
+    params = eng._params
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)),
+                           dtype=torch.int32, device="cuda")
+    extra = eng._extras(entry, _random_extras(cfg, B, rng, entry))
+    cache_len = eng.max_len + cfg.vision_tokens
+    lg, _, _ = M.prefill(cfg, params, toks, cache_len=cache_len,
+                         caches=graph.caches, **extra)
+    le, eager, _ = M.prefill(cfg, params, toks, cache_len=cache_len,
+                             **extra)
+    tok_g = tok_e = lg.argmax(-1).to(torch.int32)[:, None]
+    pos0 = eng._pos0(entry, P)
+    worst = 0.0
+    for i in range(NEW - 1):
+        tok_g, lg = graph(tok_g, pos0 + i)
+        pos = torch.full((B,), pos0 + i, dtype=torch.int32, device="cuda")
+        le, eager = M.decode_step(cfg, params, tok_e, pos, eager)
+        tok_e = le.argmax(-1).to(torch.int32)[:, None]
+        scale = le.abs().max().item()
+        err = (lg - le).abs().max().item()
+        worst = max(worst, err / scale)
+        torch.testing.assert_close(
+            lg, le, rtol=MODEL_TOL["rtol"], atol=MODEL_TOL["atol"] * scale,
+            msg=lambda m: f"{cfg.name} {entry} graph vs eager step {i}: {m}")
+        if not torch.equal(tok_g, tok_e):
+            raise RuntimeError(
+                f"{cfg.name} {entry}: greedy tokens differ at decode step "
+                f"{i}: graph {tok_g[:, 0].tolist()}, eager "
+                f"{tok_e[:, 0].tolist()}")
+    log(f"[serve] {cfg.name} {entry}: decode graph vs eager step over "
+        f"{NEW - 1} steps: logits max abs diff / max abs {worst:.3e} "
+        f"(limit {MODEL_TOL['rtol']:g}), greedy tokens identical ok")
 
 
 def log_experts(tag, rep):
@@ -1026,51 +1108,82 @@ def phase_moe_timing(eng):
 
 def phase_breakdown(eng):
     """Where one request's time goes, for information: prefill and
-    decode-step wall times (host clock around synchronised calls), then
-    a torch.profiler trace of one request for the device's busy share
-    and its kernel time by kind.  The request is the path's frontend
-    entry (``vision_generate``, ``transcribe``) with random extras where
-    it has one, else a ``generate``."""
+    decode-step wall times (host clock around synchronised calls) with
+    the decode graph and with the eager step -- the graphed request's
+    prefill writes into the graph's static caches, the eager one's
+    builds a fresh cache tree -- and each request's wall time with one
+    sync at its end; then a torch.profiler trace of one graphed and one
+    eager request for the device's busy share and its kernel time by
+    kind.  The request is the path's frontend entry
+    (``vision_generate``, ``transcribe``) with random extras where it has
+    one, else a ``generate``."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     arch = eng.cfg.name
     spec = PATHS[arch]
     B, P, NEW = spec["batch"], spec["prefill"], spec["new"]
     entry = eng.entries()[-2]  # the frontend entry, else generate
     exes, params = eng.registry[f"compile.{entry}"].value, eng._params
+    graph = exes["graph"]
     rng = np.random.default_rng(11)
     toks = torch.as_tensor(rng.integers(0, eng.cfg.vocab, (B, P)),
                            dtype=torch.int32, device="cuda")
     extra = eng._extras(entry, _random_extras(eng.cfg, B, rng, entry))
     pos0 = eng._pos0(entry, P)
 
-    def request(times):
+    def request(times, graphed, sync_steps=True):
+        def mark():
+            if sync_steps:
+                torch.cuda.synchronize()
+                times.append(time.perf_counter())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        nxt, caches, _ = exes["prefill"](params, toks, extra)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+        times.append(t0)
+        nxt, caches, _ = exes["prefill"](
+            params, toks, extra, graph.caches if graphed else None)
+        mark()
         tok = nxt[:, None]
         for i in range(NEW - 1):
-            pos = torch.full((B,), pos0 + i, dtype=torch.int32,
-                             device="cuda")
-            t0 = time.perf_counter()
-            tok, caches = exes["decode"](params, tok, pos, caches)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+            if graphed:
+                tok, _ = graph(tok, pos0 + i)
+            else:
+                pos = torch.full((B,), pos0 + i, dtype=torch.int32,
+                                 device="cuda")
+                tok, caches = exes["decode"](params, tok, pos, caches)
+            mark()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
 
-    times = []
-    request(times)
-    steps = sorted(times[1:])
-    log(f"[breakdown] {arch} {entry} prefill_s {times[0]:.4f}; decode step_s "
-        f"median {steps[len(steps) // 2]:.4f} min {steps[0]:.4f} max "
-        f"{steps[-1]:.4f} ({len(steps)} steps)")
+    medians = {}
+    for graphed in (True, False):
+        name = "graphed" if graphed else "eager"
+        request([], graphed)  # warm
+        marks = []
+        request(marks, graphed)
+        dts = np.diff(marks)
+        steps = np.sort(dts[1:])
+        medians[name] = float(np.median(steps))
+        wall = request([], graphed, sync_steps=False)
+        log(f"[breakdown] {arch} {entry} {name}: prefill_s {dts[0]:.4f} "
+            f"({'into the static caches' if graphed else 'fresh caches'})"
+            f"; decode step_s median {medians[name]:.4f} min "
+            f"{steps[0]:.4f} max {steps[-1]:.4f} ({len(steps)} steps); "
+            f"request wall_s {wall:.4f} (one sync at its end)")
+    log(f"[breakdown] {arch} decode step median eager / graphed: "
+        f"{medians['eager'] / medians['graphed']:.2f}x")
+    for graphed in (True, False):
+        profile_request(arch, entry, "graphed" if graphed else "eager",
+                        lambda: request([], graphed, sync_steps=False))
 
+
+def profile_request(arch, entry, name, run):
+    """torch.profiler over one request: the device's busy share of the
+    wall time, and device time by kernel kind."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        request([])
+        run()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_kind: dict[str, float] = {}
     by_name: dict[str, float] = {}
@@ -1078,29 +1191,352 @@ def phase_breakdown(eng):
         if ev.device_type != DeviceType.CUDA:
             continue
         us = ev.time_range.elapsed_us()
-        name = ev.name.lower()
-        kind = ("flash_attention" if "flash_fwd" in name else
-                "decode_attention" if "decode_" in name else
-                "rglru_scan" if "rglru_" in name else
-                "matmul" if any(k in name for k in (
+        low = ev.name.lower()
+        kind = ("flash_attention" if "flash_fwd" in low else
+                "decode_attention" if "decode_" in low else
+                "rglru_scan" if "rglru_" in low else
+                "matmul" if any(k in low for k in (
                     "gemm", "nvjet", "xmma", "cutlass", "gemv")) else
                 "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + us
         by_name[ev.name] = by_name.get(ev.name, 0.0) + us
     busy = sum(by_kind.values())
     if busy == 0:
-        log(f"[breakdown] {arch} device busy share: not measured (the "
-            "profiler recorded no device events)")
+        log(f"[breakdown] {arch} {name} device busy share: not measured "
+            "(the profiler recorded no device events)")
         return
-    log(f"[breakdown] {arch} profiled {entry} request: wall "
+    log(f"[breakdown] {arch} profiled {name} {entry} request: wall "
         f"{wall_us / 1e3:.2f} ms, "
         f"device busy {busy / 1e3:.2f} ms (share {busy / wall_us:.4f}, "
         f"idle {1 - busy / wall_us:.4f}; profiler overhead included)")
     for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
-        log(f"[breakdown]   {kind}: {us / 1e3:.3f} ms "
+        log(f"[breakdown]   {name} {kind}: {us / 1e3:.3f} ms "
             f"({us / busy:.4f} of device time)")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-        log(f"[breakdown]   top kernel {us / 1e3:.3f} ms: {name[:90]}")
+    for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"[breakdown]   {name} top kernel {us / 1e3:.3f} ms: "
+            f"{kname[:90]}")
+
+
+# ------------------------------------------------------------ pool phase
+POOL_ARCHS = ("granite-8b", "granite-moe-1b-a400m", "whisper-large-v3",
+              "pixtral-12b")
+
+
+def _measured_engine_class():
+    """ServingEngine that records the device memory its cold start
+    added (``held``: memory after the cold start less memory before)."""
+    import torch
+    from repro_torch.serving import ServingEngine
+
+    class MeasuredEngine(ServingEngine):
+        def cold_start(self):
+            m0 = torch.cuda.memory_allocated()
+            s = super().cold_start()
+            self.held = torch.cuda.memory_allocated() - m0
+            return s
+    return MeasuredEngine
+
+
+def _pool_builders():
+    from repro_torch.configs import get_config
+    cls = _measured_engine_class()
+
+    def builder(arch):
+        spec = PATHS[arch]
+        return lambda: cls(get_config(arch), batch_size=spec["batch"],
+                           prefill_len=spec["prefill"],
+                           max_len=spec["cache"], device="cuda")
+    return {arch: builder(arch) for arch in POOL_ARCHS}
+
+
+def _scratch_bytes():
+    """Bytes of the decode kernel's per-stream scratch sets (those no
+    graph owns)."""
+    from repro_torch.kernels.decode_attention import _workspace
+    return sum(t.numel() * t.element_size()
+               for pair in _workspace.values() for t in pair)
+
+
+def _drop_all(pool):
+    import gc
+
+    import torch
+    for eng in list(pool.warm.values()):
+        for comp in eng.registry.values():
+            comp.drop()
+    pool.warm.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_pool():
+    """EnginePool over four full-width models (batch 4, the phase-5
+    prompt and cache sizes), max_warm=2: a seeded sequence of two passes
+    over the four models (each pass a permutation, its last model sent
+    twice), so every pass misses at least twice (>= 4 evictions) and the
+    second revisits evicted models.  Checked: each dispatch's path and
+    the victims against a model of the pool's policy fed the engines'
+    measured cold starts; stats' hits, misses and evictions; after each
+    dispatch that evicted, device memory at most what the warm engines
+    held at admission plus the decode scratch (so none of a victim's
+    weights remain); no growth of the unexplained rest from the first
+    pass to the second; exact launch counts.  Then ``rewarm()`` on the
+    warm engines, and single-flight with queue_depth=2: 5 threads on one
+    cold model give one build, 2 queued, 2 shed."""
+    import gc
+    import threading
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serving import EnginePool, PoolSaturated, ServingEngine
+    gc.collect()
+    torch.cuda.empty_cache()
+    # PyTorch keeps two 512-byte blocks of graph-safe RNG state while any
+    # CUDA graph lives (allocated by the first capture, freed with the
+    # last graph): a graph kept alive over the phase puts them in the base
+    keeper = _keeper_graph()
+    base = torch.cuda.memory_allocated()
+    scratch0 = _scratch_bytes()
+    rng = np.random.default_rng(5)
+    perm = [POOL_ARCHS[i] for i in rng.permutation(len(POOL_ARCHS))]
+    seq = (perm + perm[-1:]) * 2
+    inputs = [rng.integers(0, get_config(a).vocab,
+                           (PATHS[a]["batch"], PATHS[a]["prefill"]))
+              for a in seq]
+    log(f"[pool] max_warm 2, sequence {seq}; base memory "
+        f"{base / 2**30:.3f} GiB")
+    pool = EnginePool(_pool_builders(), max_warm=2)
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    sim: dict[str, int] = {}  # warm model -> dispatches, admission order
+    cold_s: dict[str, float] = {}
+    want_paths, want_evict, builds, revisits = [], [], [], []
+    residual = []
+    for i, (arch, toks) in enumerate(zip(seq, inputs)):
+        new = PATHS[arch]["new"]
+        gc.collect()
+        out, lat, path = pool.dispatch(arch, "generate", toks,
+                                       max_new_tokens=new)
+        evicted = None
+        if arch in sim:
+            want_paths.append("warm")
+        else:
+            want_paths.append("cold")
+            if arch in want_evict:
+                revisits.append(arch)
+            builds.append(arch)
+            if len(sim) >= 2:
+                evicted = min(sim, key=lambda m: cold_s[m] * sim[m])
+                del sim[evicted]
+                want_evict.append(evicted)
+            sim[arch] = 0
+            cold_s[arch] = pool.warm[arch].cold_start_s
+        sim[arch] += 1
+        if path != want_paths[-1] or pool.evictions != want_evict:
+            raise RuntimeError(f"pool dispatch {i} ({arch}): path {path}, "
+                               f"evictions {pool.evictions}; the policy "
+                               f"gives {want_paths[-1]}, {want_evict}")
+        if out.shape != (PATHS[arch]["batch"], new) or out.min() < 0 \
+                or out.max() >= get_config(arch).vocab:
+            raise RuntimeError(f"pool {arch}: bad tokens {out.shape}")
+        torch.cuda.synchronize()
+        alloc = torch.cuda.memory_allocated() - base
+        held = sum(e.held for e in pool.warm.values())
+        scratch = _scratch_bytes() - scratch0
+        residual.append(alloc - held - scratch)
+        msg = (f"[pool] {i}: {arch} {path} {lat:.4f} s; warm "
+               f"{sorted(pool.warm)}; memory above base "
+               f"{alloc / 2**30:.3f} GiB, held at admission "
+               f"{held / 2**30:.3f} GiB (" + ", ".join(
+                   f"{m} {e.held / 2**30:.3f}"
+                   for m, e in pool.warm.items()) + f"), scratch "
+               f"{scratch} B")
+        if evicted is not None:
+            from repro_torch.models.model import param_count
+            gone = param_count(get_config(evicted)) * 2
+            msg += (f"; evicted {evicted} ({gone / 2**30:.3f} GiB of "
+                    f"weights)")
+            if alloc > held + scratch:
+                raise RuntimeError(f"pool: after evicting {evicted}, "
+                                   f"{alloc} B above base > {held} B held "
+                                   f"+ {scratch} B scratch")
+        log(msg)
+    got = {n: fn.launches for n, fn in counters.items()}
+    want = {n: 0 for n in counters}
+    for arch in POOL_ARCHS:
+        cfg = get_config(arch)
+        n_built = builds.count(arch)
+        n_entries = len(ServingEngine(cfg, device="cuda").entries())
+        for n, v in _want(cfg, n_entries * n_built + seq.count(arch),
+                          (n_entries - 1) * n_built
+                          + (PATHS[arch]["new"] - 1) * seq.count(arch)
+                          ).items():
+            want[n] += v
+    st = pool.stats()
+    log(f"[pool] stats hits {st['hits']} misses {st['misses']} evictions "
+        f"{st['evictions']}; launches {got} (want {want}); unexplained "
+        f"memory after pass 1 {residual[len(seq) // 2 - 1]} B, after pass "
+        f"2 {residual[-1]} B")
+    if (st["hits"], st["misses"], st["evictions"]) != (
+            want_paths.count("warm"), want_paths.count("cold"), want_evict):
+        raise RuntimeError(f"pool stats {st} against the sequence")
+    log(f"[pool] evicted models built again: {revisits}")
+    if len(want_evict) < 4 or not revisits:
+        raise RuntimeError("pool: the sequence evicted fewer than 4 or "
+                           "revisited no evicted model")
+    if got != want:
+        raise RuntimeError(f"pool launches {got}, want {want}")
+    if residual[-1] > residual[len(seq) // 2 - 1]:
+        raise RuntimeError("pool: memory grew from the first pass to the "
+                           "second (graphs, caches or scratch leaked)")
+    rewarmed = pool.rewarm()
+    log(f"[pool] rewarm(): prewarm {rewarmed}")
+    if set(rewarmed) != set(pool.warm) or not all(
+            "weights.core" in v for v in rewarmed.values()):
+        raise RuntimeError(f"pool rewarm: {rewarmed}")
+    _drop_all(pool)
+
+    # single-flight: one cold model, 5 callers, 2 may wait
+    arch = "whisper-large-v3"
+    n_built = []
+    builders = _pool_builders()
+
+    def counted():
+        n_built.append(1)
+        return builders[arch]()
+
+    qpool = EnginePool({arch: counted}, max_warm=1, queue_depth=2)
+    toks = inputs[seq.index(arch)]
+    paths, sheds, outs = [], [], []
+
+    def call():
+        try:
+            out, _, path = qpool.dispatch(arch, "generate", toks,
+                                          max_new_tokens=4)
+            paths.append(path)
+            outs.append(out)
+        except PoolSaturated:
+            sheds.append(1)
+
+    threads = [threading.Thread(target=call) for _ in range(5)]
+    for t in threads:
+        t.start()
+        time.sleep(0.02)
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            raise RuntimeError("pool: a queued dispatch did not return")
+    st = qpool.stats()
+    log(f"[pool] queue_depth 2, 5 threads on cold {arch}: builds "
+        f"{len(n_built)}, paths {sorted(paths)}, sheds {len(sheds)}; "
+        f"stats sheds {st['sheds']} coalesced {st['coalesced']} "
+        f"queue_wait_p99_s {st['queue_wait_p99_s']:.4f}")
+    if len(n_built) != 1 or sorted(paths) != ["cold", "queued", "queued"] \
+            or len(sheds) != 2 or st["sheds"] != 2 or st["coalesced"] != 2:
+        raise RuntimeError("pool: single-flight / shed counts")
+    if any(not np.array_equal(o, outs[0]) for o in outs):
+        raise RuntimeError("pool: queued serves gave other tokens")
+    log(f"[pool] rewarm(): prewarm {qpool.rewarm()}")
+    _drop_all(qpool)
+    del keeper
+
+
+def _keeper_graph():
+    """A one-op CUDA graph (see phase_pool)."""
+    import torch
+    x = torch.zeros(1, device="cuda")
+    keeper = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(keeper):
+        x.add_(1)
+    return keeper, x
+
+
+def phase_batcher():
+    """ContinuousBatcher on full-width granite-8b: 4 slots, 640-slot
+    caches, 12 requests (prompts of 64-512 tokens, 4-16 new tokens, from
+    a seed), once with the decode step captured as a graph over the
+    batcher's caches and once with the eager step on a cache tree of its
+    own; every request's tokens must agree.  Launches counted per run:
+    flash once per layer per (batch-1, ragged) prefill, decode once per
+    layer per step."""
+    import gc
+    from functools import partial
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving import ContinuousBatcher, Request
+    from repro_torch.serving.graphs import DecodeGraph
+    cfg = get_config("granite-8b")
+    n_slots, cache_len = 4, 640
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                           "cuda")
+    rng = np.random.default_rng(13)
+    reqs = [(int(rng.integers(64, 513)), int(rng.integers(4, 17)))
+            for _ in range(12)]
+    prompts = [rng.integers(0, cfg.vocab, (L,)) for L, _ in reqs]
+
+    def prefill_fn(tokens):
+        logits, caches, _ = M.prefill(cfg, params, tokens,
+                                      cache_len=cache_len)
+        return logits.argmax(-1).to(torch.int32), caches
+
+    def eager_decode(tok, pos, caches):
+        logits, caches = M.decode_step(cfg, params, tok, pos, caches)
+        return logits.argmax(-1).to(torch.int32)[:, None], caches
+
+    counters = _kernel_counters()
+    per = _per_call(cfg)
+    results = {}
+    for name in ("graphed", "eager"):
+        caches = M.init_cache(cfg, n_slots, cache_len, "cuda")
+        if name == "graphed":
+            graph = DecodeGraph(partial(M.decode_step, cfg), params, caches,
+                                n_slots, "cuda")
+
+            def decode_fn(tok, pos, caches):
+                return graph(tok, pos)[0], caches
+        else:
+            decode_fn = eager_decode
+        batcher = ContinuousBatcher(prefill_fn, decode_fn, caches,
+                                    n_slots=n_slots)
+        for fn in counters.values():
+            fn.launches = 0
+        for rid, (p, (_, new)) in enumerate(zip(prompts, reqs)):
+            batcher.submit(Request(rid=rid, tokens=p, max_new_tokens=new))
+        t0 = time.perf_counter()
+        st = batcher.run_until_drained()
+        wall = time.perf_counter() - t0
+        got = {n: fn.launches for n, fn in counters.items()}
+        want = {"flash_attention": per["flash_attention"] * len(reqs),
+                "decode_attention": per["decode_attention"] * st["steps"],
+                "rglru_scan": 0}
+        log(f"[batcher] granite-8b {name}: {st['finished']} finished in "
+            f"{st['steps']} steps, {wall:.4f} s; mean_latency_s "
+            f"{st['mean_latency_s']:.4f} p99_latency_s "
+            f"{st['p99_latency_s']:.4f}; slow steps {st['slow_steps']}; "
+            f"launches {got} (want {want})")
+        if st["finished"] != len(reqs) or got != want:
+            raise RuntimeError(f"batcher {name}: {st}, launches {got}")
+        results[name] = {r.rid: r.out_tokens for r in batcher.finished}
+        del batcher, caches, decode_fn
+        if name == "graphed":
+            del graph
+        gc.collect()
+    if any(len(results["graphed"][r]) != new
+           for r, (_, new) in enumerate(reqs)):
+        raise RuntimeError("batcher: a request got the wrong token count")
+    if results["graphed"] != results["eager"]:
+        bad = [r for r in results["eager"]
+               if results["graphed"][r] != results["eager"][r]]
+        raise RuntimeError(f"batcher: graphed tokens differ from eager in "
+                           f"requests {bad}")
+    log(f"[batcher] prompts {[L for L, _ in reqs]}, new "
+        f"{[n for _, n in reqs]}: graphed tokens equal eager tokens ok")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 class _Phase:
@@ -1230,6 +1666,10 @@ def main():
     for arch in LAUNCHER_ARCHS:
         with _Phase(f"5b launcher {arch}"):
             phase_launcher(arch)
+    with _Phase("5c pool"):
+        phase_pool()
+    with _Phase("5d batcher"):
+        phase_batcher()
     with _Phase("7 device_ms"):
         phase_device_time([e for es in kernels.values() for e in es])
     log(f"[time] total {time.perf_counter() - t_start:.1f} s")

@@ -141,6 +141,17 @@ def _scratch(device, stream, n_pairs, n_part):
     return ticket, part
 
 
+def take_scratch(device, stream):
+    """Remove the scratch set of (device, stream) and hand it to the
+    caller (None if that stream has none): a CUDA graph that captured
+    calls on ``stream`` owns the set its replays address, so no later
+    call on that stream writes into it."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    return _workspace.pop((index, stream), None)
+
+
 decode_attention.launches = 0
 
 

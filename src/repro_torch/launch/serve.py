@@ -13,7 +13,10 @@ Runs the paper's full CI/CD loop on a real model:
 
 ``main`` serves the arch's reduced config, as the reference does, on
 the card unless ``--device cpu`` is given; ``run_service`` takes the
-shapes and the config, so a caller can drive a full-width model.
+shapes and the config, so a caller can drive a full-width model.  On
+the card every decode step of a generating entry replays the entry's
+CUDA graph, captured in its ``compile.<entry>`` warm-up
+(``ServingEngine``).
 """
 
 from __future__ import annotations

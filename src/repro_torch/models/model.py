@@ -31,7 +31,8 @@ Public surface:
   init_cache(cfg, B, len, device)     -> stacked KV caches
   run_encoder(cfg, params, frames)    -> encoder output (B, T, D)
   forward(cfg, params, tokens, ...)   -> (hidden, caches, aux)
-  prefill(cfg, params, tokens, ...)   -> (logits, caches, aux)
+  prefill(cfg, params, tokens, ...)   -> (logits, caches, aux); with
+                                         ``caches=`` it writes into them
   decode_step(cfg, params, token, pos, caches) -> (logits, caches)
 """
 
@@ -306,7 +307,7 @@ def _zero_aux(cfg, device):
 
 
 def _run_layers(cfg, params_l, x, positions, *, caches=None, decode=False,
-                make_cache=0, enc_out=None):
+                make_cache=0, enc_out=None, out_caches=None):
     """Drive the stacked layer groups (``scan``, then ``rem_scan``): a
     loop over each group's stacked index.
 
@@ -315,11 +316,14 @@ def _run_layers(cfg, params_l, x, positions, *, caches=None, decode=False,
     decode step only reads, are never copied, so
     ``cfg.decode_skip_static_writes`` has nothing left to switch and is
     kept for ``asdict`` parity); prefill with ``make_cache`` > 0
-    writes each layer's cache into a fresh stacked cache.  Returns
-    (x, caches or None, aux summed over the layers).
+    writes each layer's cache into a stacked cache: ``out_caches`` where
+    given (every slot written, the empty ones as ``init_cache`` leaves
+    them), else a fresh one.  Returns (x, caches or None, aux summed
+    over the layers).
     """
     if make_cache:
-        caches = init_cache(cfg, x.shape[0], make_cache, x.device)
+        caches = init_cache(cfg, x.shape[0], make_cache, x.device) \
+            if out_caches is None else out_caches
     aux_tot = _zero_aux(cfg, x.device)
     for group, pattern, n in _groups(cfg):
         for t in range(n):
@@ -373,10 +377,17 @@ def run_encoder(cfg: ArchConfig, params, frames):
 # --------------------------------------------------------------------------
 
 def _check_range(idx, n, what):
-    """Raise IndexError for an index outside [0, n) (the reference clamps;
-    on a CUDA tensor an out-of-range index would be a device fault)."""
-    if bool(((idx < 0) | (idx >= n)).any()):
-        raise IndexError(f"{what} out of range [0, {n})")
+    """Fail on an index outside [0, n) (the reference clamps).  A CPU
+    tensor is checked on the host (IndexError); on the card the check
+    stays there (``torch._assert_async``), so a decode step adds no host
+    sync and can be captured in a CUDA graph, and a bad index still fails
+    loudly, at the next sync, as a device-side assert."""
+    msg = f"{what} out of range [0, {n})"
+    if idx.device.type == "cpu":
+        if bool(((idx < 0) | (idx >= n)).any()):
+            raise IndexError(msg)
+    else:
+        torch._assert_async(((idx >= 0) & (idx < n)).all(), msg)
 
 
 def embed_tokens(cfg, params, tokens):
@@ -404,7 +415,7 @@ def _add_pos_embed(cfg, params, x, positions):
 
 
 def forward(cfg: ArchConfig, params, tokens, *, patch_embeds=None,
-            enc_frames=None, make_cache=0):
+            enc_frames=None, make_cache=0, out_caches=None):
     """Full-sequence forward from position 0.  Returns (hidden (B,S,D),
     caches, aux).
 
@@ -412,6 +423,8 @@ def forward(cfg: ArchConfig, params, tokens, *, patch_embeds=None,
     ``vision_tokens`` positions; ``tokens`` then holds the text after
     them.  whisper: ``enc_frames`` (B, encoder_seq, D) drive the encoder
     (zeros where absent, for text-only traffic); tokens are decoder ids.
+    ``out_caches``: the stacked cache ``make_cache`` writes into (see
+    ``prefill``).
     """
     x = embed_tokens(cfg, params, tokens)
     if cfg.vision_tokens and patch_embeds is not None:
@@ -427,20 +440,45 @@ def forward(cfg: ArchConfig, params, tokens, *, patch_embeds=None,
                                      dtype=x.dtype, device=x.device)
         enc_out = run_encoder(cfg, params, enc_frames)
     x, caches, aux = _run_layers(cfg, params["layers"], x, positions,
-                                 make_cache=make_cache, enc_out=enc_out)
+                                 make_cache=make_cache, enc_out=enc_out,
+                                 out_caches=out_caches)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, caches, aux
 
 
 def prefill(cfg: ArchConfig, params, tokens, *, cache_len=None,
-            patch_embeds=None, enc_frames=None):
+            patch_embeds=None, enc_frames=None, caches=None):
     """Prefill: forward + decode-cache construction.  Returns
     (last-token logits (B, V), caches, aux).  The cache holds
-    ``cache_len`` slots, by default the prompt and the vision prefix."""
+    ``cache_len`` slots, by default the prompt and the vision prefix.
+
+    ``caches``: an existing cache tree of ``init_cache(cfg, B,
+    cache_len)``'s shapes and types, written in place (every slot: the
+    prefill's and, as empty ones, the rest) and returned; a CUDA graph's
+    static caches take each request's prefill so, with no extra copy.
+    """
     cache_len = cache_len or tokens.shape[1] + cfg.vision_tokens
+    if caches is not None:
+        _check_cache_tree(cfg, caches, tokens.shape[0], cache_len)
     h, caches, aux = forward(cfg, params, tokens, patch_embeds=patch_embeds,
-                             enc_frames=enc_frames, make_cache=cache_len)
+                             enc_frames=enc_frames, make_cache=cache_len,
+                             out_caches=caches)
     return _head(cfg, params, h[:, -1]), caches, aux
+
+
+def _check_cache_tree(cfg, caches, batch, cache_len):
+    """Raise ValueError unless ``caches`` has ``init_cache``'s leaves,
+    shapes and types (checked against a meta-device tree: nothing is
+    allocated)."""
+    want = dict(_leaves(init_cache(cfg, batch, cache_len, "meta")))
+    got = dict(_leaves(caches))
+    bad = sorted(k for k in want.keys() | got.keys()
+                 if k not in want or k not in got
+                 or got[k].shape != want[k].shape
+                 or got[k].dtype != want[k].dtype)
+    if bad:
+        raise ValueError(f"prefill: the given caches differ from "
+                         f"init_cache(cfg, {batch}, {cache_len}) at {bad}")
 
 
 def decode_step(cfg: ArchConfig, params, token, pos, caches):

@@ -57,7 +57,12 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch, repro_torch.configs, repro_torch.models\n"
         "import repro_torch.models.convert, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.ref, repro_torch.serving\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.serving.graphs\n"
+        "import repro_torch.serving.batcher, repro_torch.obs.tracing\n"
+        "import repro_torch.obs.metrics, repro_torch.pool.sharing\n"
+        "import repro_torch.api.artifacts\n"
+        "import repro_torch.examples.serve_continuous\n"
+        "import repro_torch.examples.quickstart\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"

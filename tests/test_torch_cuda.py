@@ -295,11 +295,18 @@ def test_decode_kernel_one_launch_per_call(cuda, dtype, hd, kernel):
     args = _decode_inputs(rng, 4, 2, 4, 640, hd, dtype, cuda, False)
     decode_attention(*args)  # scratch allocated outside the trace
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        decode_attention(*args)
-        torch.cuda.synchronize()
-    names = [ev.name for ev in prof.events()
-             if ev.device_type == DeviceType.CUDA]
+    # after an earlier profiler session in the process, a session may
+    # record no device event at all (seen on the H100): such a session
+    # says nothing about the launch, so up to two more are taken; the
+    # first that records anything must hold exactly the one kernel
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            decode_attention(*args)
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA]
+        if names:
+            break
     assert len(names) == 1 and kernel in names[0], names
 
 
@@ -441,3 +448,196 @@ def test_moe_apply_cuda_matches_cpu(cuda, B, S, group, dtype):
     assert yg.dtype == dtype
     torch.testing.assert_close(yg.cpu().float(), yc.float(), **TOL[dtype])
     torch.testing.assert_close(ag["expert_load"].cpu(), ac["expert_load"])
+
+
+# ------------------------------------------------------------- serving
+def _kernel_counters():
+    from repro_torch.serving.graphs import COUNTED
+    return {f.__name__: f for f in COUNTED}
+
+
+def _per_step(cfg):
+    """Kernel launches of one decode step: decode once per attention and
+    cross-attention layer."""
+    pat, n_per, n_rem = M.layer_layout(cfg)
+    kinds = list(pat) * n_per + list(pat[:n_rem])
+    n_attn = sum(k.startswith("attn") for k in kinds)
+    n_cross = len(kinds) if cfg.encoder_layers else 0
+    return {"flash_attention": 0, "decode_attention": n_attn + n_cross,
+            "rglru_scan": 0}
+
+
+@pytest.mark.parametrize("arch,n_dec", [("granite-8b", 6),
+                                        ("qwen2.5-32b", 6),
+                                        ("recurrentgemma-2b", 20),
+                                        ("granite-moe-1b-a400m", 6),
+                                        ("olmoe-1b-7b", 6),
+                                        ("whisper-large-v3", 6),
+                                        ("pixtral-12b", 6)])
+def test_decode_graph_matches_eager_step(cuda, arch, n_dec):
+    """The captured decode step, replayed over a prefill written into its
+    static caches, against the eager step on a copy of the same caches:
+    logits within 2e-3 and the same greedy tokens at every step
+    (recurrentgemma past its window of 16, so the ring wraps); each
+    replay adds its captured launches to the counters, the capture adds
+    none."""
+    from repro_torch.serving.graphs import DecodeGraph
+    cfg = get_reduced(arch)
+    params = M.init_params(cfg, torch.Generator(cuda).manual_seed(1), cuda)
+    B, T0, vt = 2, 8, cfg.vision_tokens
+    cache_len = vt + T0 + n_dec
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, T0)).astype(
+        np.int32)).to(cuda)
+    ex = {}
+    if cfg.vision_tokens:
+        ex["patch_embeds"] = (B, vt, cfg.d_model)
+    if cfg.encoder_layers:
+        ex["enc_frames"] = (B, cfg.encoder_seq, cfg.d_model)
+    ex = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+          .to(cuda) for k, s in ex.items()}
+    counters = _kernel_counters()
+    static = M.init_cache(cfg, B, cache_len, cuda)
+    n0 = {k: f.launches for k, f in counters.items()}
+    graph = DecodeGraph(lambda p, t, q, c: M.decode_step(cfg, p, t, q, c),
+                        params, static, B, cuda)
+    # the warm-up step launched; the capture did not
+    assert {k: f.launches - n0[k] for k, f in counters.items()} == \
+        _per_step(cfg)
+    assert graph.launches() == _per_step(cfg)
+    logits, _, _ = M.prefill(cfg, params, toks, cache_len=cache_len,
+                             caches=static, **ex)
+    eager = {k: {p: {n: t.clone() for n, t in c.items()}
+                 for p, c in g.items()} for k, g in static.items()}
+    tok_g = tok_e = logits.argmax(-1).to(torch.int32)[:, None]
+    for i in range(n_dec):
+        pos = torch.full((B,), vt + T0 + i, dtype=torch.int32, device=cuda)
+        n0 = {k: f.launches for k, f in counters.items()}
+        tok_g, lg = graph(tok_g, pos)
+        assert {k: f.launches - n0[k] for k, f in counters.items()} == \
+            _per_step(cfg)
+        le, eager = M.decode_step(cfg, params, tok_e, pos, eager)
+        tok_e = le.argmax(-1).to(torch.int32)[:, None]
+        torch.testing.assert_close(lg, le, rtol=2e-3, atol=2e-3,
+                                   msg=lambda m: f"step {i}: {m}")
+        assert torch.equal(tok_g, tok_e), f"step {i}"
+
+
+def test_check_range_asserts_on_device(cuda):
+    """``_check_range`` on the card adds no host sync (it runs under
+    ``set_sync_debug_mode("error")``); an out-of-range decode position
+    then fails loudly as a device-side assert, at the latest at the next
+    sync (the assert ends the CUDA context: so in a child process)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    idx = torch.tensor([0, 5], dtype=torch.int32, device=cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        M._check_range(idx, 6, "index")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    code = (
+        "import torch\n"
+        "from repro_torch.configs import get_reduced\n"
+        "from repro_torch.models import model as M\n"
+        "cfg = get_reduced('granite-8b')\n"
+        "p = M.init_params(cfg, torch.Generator('cuda').manual_seed(0),"
+        " 'cuda')\n"
+        "c = M.init_cache(cfg, 1, 8, 'cuda')\n"
+        "tok = torch.zeros((1, 1), dtype=torch.int32, device='cuda')\n"
+        "torch.cuda.synchronize()\n"
+        "print('set up', flush=True)\n"
+        "M.decode_step(cfg, p, tok, torch.tensor([8], dtype=torch.int32,"
+        " device='cuda'), c)\n"
+        "torch.cuda.synchronize()\n"
+        "print('synced', flush=True)\n")
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(src)})
+    assert "set up" in out.stdout and "synced" not in out.stdout, \
+        out.stderr[-2000:]
+    assert out.returncode != 0
+    assert "device-side assert" in out.stderr, out.stderr[-2000:]
+
+
+def test_evicted_engine_frees_card_memory(cuda):
+    """An EnginePool eviction drops the engine's weights, static caches,
+    decode graphs and their scratch: the card then holds what the warm
+    engine held at its admission and no more."""
+    import gc
+    import weakref
+    from repro_torch.serving import EnginePool, ServingEngine
+
+    class Measured(ServingEngine):
+        def cold_start(self):
+            m0 = torch.cuda.memory_allocated()
+            s = super().cold_start()
+            self.held = torch.cuda.memory_allocated() - m0
+            return s
+
+    def builder(arch):
+        return lambda: Measured(get_reduced(arch), batch_size=2,
+                                prefill_len=8, max_len=24, device="cuda")
+
+    # the process's one-time allocations (cuBLAS workspaces of the
+    # default and the capture streams) come before the baseline, and so
+    # does PyTorch's graph-safe RNG state (two 512-byte blocks held while
+    # any CUDA graph lives): a one-op graph stays alive over the test
+    x = torch.zeros(1, device=cuda)
+    keeper = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(keeper):
+        x.add_(1)
+    warm = builder("whisper-large-v3")()
+    warm.cold_start()
+    warm.serve("transcribe", np.ones((2, 8), np.int32), max_new_tokens=2)
+    del warm
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    pool = EnginePool({a: builder(a) for a in ("granite-8b",
+                                               "whisper-large-v3")},
+                      max_warm=1)
+    toks = np.ones((2, 8), np.int32)
+    pool.dispatch("granite-8b", "generate", toks, max_new_tokens=4)
+    first = pool.warm["granite-8b"]
+    graph = weakref.ref(first.registry["compile.generate"].value["graph"])
+    embed = weakref.ref(first._params["embed"])
+    assert first.held > 0
+    pool.dispatch("whisper-large-v3", "transcribe", toks, max_new_tokens=4)
+    assert pool.evictions == ["granite-8b"]
+    gc.collect()
+    assert graph() is None and embed() is None and first._params is None
+    held = pool.warm["whisper-large-v3"].held
+    assert torch.cuda.memory_allocated() - base <= held
+    del keeper
+
+
+def test_concurrent_serves_equal_sequential_on_card(cuda):
+    """Threads serving on one CUDA engine at once (its decode graph
+    replays into static buffers) get the tokens of sequential serves."""
+    import threading
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(get_reduced("granite-moe-1b-a400m"), batch_size=2,
+                        prefill_len=8, max_len=24, device="cuda")
+    eng.cold_start()
+    assert "graph" in eng.registry["compile.generate"].value
+    rng = np.random.default_rng(8)
+    reqs = [rng.integers(0, eng.cfg.vocab, (2, 8)) for _ in range(6)]
+    want = [eng.serve("generate", t, max_new_tokens=8)[0] for t in reqs]
+    got = [None] * len(reqs)
+
+    def serve(i):
+        got[i] = eng.serve("generate", reqs[i], max_new_tokens=8)[0]
+
+    threads = [threading.Thread(target=serve, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)

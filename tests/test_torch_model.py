@@ -179,6 +179,38 @@ def test_prefill_decode_matches_forward(pair):
                                    err_msg=f"{arch}: decode step {i}")
 
 
+@pytest.mark.parametrize("T0", [8, 20])  # 20 > recurrentgemma's window
+def test_prefill_writes_into_given_caches(pair, T0):
+    """``prefill(caches=)`` writes every leaf of a given cache tree in
+    place, as a fresh prefill builds it: its own slots, and the rest
+    empty (pos -1) whatever the tree held before; a tree of other shapes
+    raises."""
+    arch, _, tcfg, _, tparams = pair
+    B, cache_len = 2, tcfg.vision_tokens + T0 + 4
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, tcfg.vocab, (B, T0)).astype(np.int32))
+    _, ex = _both(_extras(tcfg, B, 6))
+    want_logits, want, _ = TM.prefill(tcfg, tparams, toks,
+                                      cache_len=cache_len, **ex)
+    given = TM.init_cache(tcfg, B, cache_len, "cpu")
+    for _, leaf in TM._leaves(given):  # stale contents, to be overwritten
+        leaf.fill_(7)
+    ptrs = {n: leaf.data_ptr() for n, leaf in TM._leaves(given)}
+    logits, got, _ = TM.prefill(tcfg, tparams, toks, cache_len=cache_len,
+                                caches=given, **ex)
+    assert got is given
+    torch.testing.assert_close(logits, want_logits, rtol=0, atol=0)
+    want = dict(TM._leaves(want))
+    for name, leaf in TM._leaves(got):
+        assert leaf.data_ptr() == ptrs[name], name
+        torch.testing.assert_close(leaf, want[name], rtol=0, atol=0,
+                                   msg=f"{arch}: {name}")
+    with pytest.raises(ValueError, match="differ from init_cache"):
+        TM.prefill(tcfg, tparams, toks, cache_len=cache_len,
+                   caches=TM.init_cache(tcfg, B + 1, cache_len, "cpu"),
+                   **ex)
+
+
 # ------------------------------------------------------------ frontends
 def _carried(arch, **kw):
     """(jcfg, tcfg, jparams, tparams) of the reduced arch (with ``kw``

@@ -4,6 +4,13 @@ granite-moe-1b-a400m, whisper-large-v3 and pixtral-12b), on the CPU
 (device="cpu").  whisper's ``transcribe`` and pixtral's
 ``vision_generate`` get random extras, drawn with numpy from a seed.
 
+A deliberate difference: the reference's compiled executables are
+re-entrant, while a CUDA engine's decode graphs replay into static
+buffers, so the port's engine serves one request at a time (a lock in
+``serve``); concurrent serves queue and give the tokens sequential ones
+give (``test_concurrent_serves_equal_sequential``; on the card,
+``tests/test_torch_cuda.py``).
+
 A reference quirk the port keeps, for parity: a request's prefill runs
 before the experts it routed to are materialized, so under a lazy
 ``experts`` policy the first request that routes to a cold expert is
@@ -122,6 +129,42 @@ def test_report_lists_reference_components(engines):
         {(r["component"], r["group"]) for r in jrep["components"]}
     assert trep["by_group"].keys() == jrep["by_group"].keys()
     assert trep["cold_start_s"] > 0
+
+
+def test_concurrent_serves_equal_sequential():
+    """Four threads serving on one engine at once get the tokens the same
+    requests get one after the other (the per-engine serve lock)."""
+    import threading
+    eng = ServingEngine(t_reduced("recurrentgemma-2b"), batch_size=2,
+                        prefill_len=8, max_len=24, device="cpu")
+    eng.cold_start()
+    rng = np.random.default_rng(8)
+    reqs = [rng.integers(0, eng.cfg.vocab, (2, 8)) for _ in range(4)]
+    want = [eng.serve("generate", t, max_new_tokens=6)[0] for t in reqs]
+    got = [None] * len(reqs)
+
+    def serve(i):
+        got[i] = eng.serve("generate", reqs[i], max_new_tokens=6)[0]
+
+    threads = [threading.Thread(target=serve, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_serve_takes_the_engines_batch_only():
+    """As the reference's compiled executables, a serve's batch must be
+    the engine's."""
+    eng = ServingEngine(t_reduced("granite-8b"), batch_size=2,
+                        prefill_len=8, max_len=16, device="cpu")
+    eng.cold_start()
+    with pytest.raises(ValueError, match="batch 1"):
+        eng.serve("generate", np.zeros((1, 8), np.int32))
 
 
 def test_engine_without_cuda_raises(monkeypatch):
