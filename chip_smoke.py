@@ -17,47 +17,64 @@ Phases, each raising on failure (the script then exits non-zero):
               64, 128 and 256 of both kernels have theirs (they run on the
               tensor cores, fed by asynchronous copies);
 3. kernels -- hold each kernel against its plain PyTorch version on the
-              card, at the shapes of the five main paths -- granite-8b
+              card, at the shapes of the main paths -- granite-8b
               (batch 4, prefill 512, cache 640, hd 128, G 4),
               recurrentgemma-2b (batch 4, prefill 2048, window 2048,
               hd 256, G 10 over one kv head; RG-LRU (4, 2048, 2560)),
               granite-moe-1b-a400m (batch 4, prefill 512, cache 640,
               hd 64, G 2), pixtral-12b (batch 4, a 768-token vision
-              prefill, 896 cache slots, hd 128, G 4) and whisper-large-v3
+              prefill, 896 cache slots, hd 128, G 4), whisper-large-v3
               (batch 4, hd 64, G 1: the encoder over 1500 frames with no
               mask, the decoder's causal 224-token prefill, cross
               attention from 224 queries over 1500 frames, self decode
               over the 448-slot cache and cross decode over the 1500
-              all-valid slots) --
+              all-valid slots), gemma2-9b (batch 4, hd 256, G 2, softcap
+              50: the 4608-token prefill through a local layer (window
+              4096) and a global one, decode over the wrapped 4096-slot
+              ring and the 4624-slot global cache) and gemma3-27b (batch
+              4, hd 128, G 2: the 2048-token prefill through a local
+              layer (window 1024) and a global one, decode over the
+              wrapped 1024-slot ring and the 2064-slot global cache) --
               and at small windowed / softcapped / ragged (S 130, 200
               against 64- and 128-key tiles) / bidirectional / ring-buffer
               / all-valid shapes, in bf16 (tolerance 3e-2; decode's and
               unmasked flash's 2e-2 relative and 5e-3 absolute, held to
               their outputs' scale) and fp32 (2e-5); time kernel,
               plain version and one PyTorch library call where one
-              computes the same function
-              (scaled_dot_product_attention, a yardstick the port never
-              calls; none for the RG-LRU scan) with CUDA events (``ms``:
-              includes the wrapper's host path where it is the longer);
+              computes the same function, a yardstick the port never
+              calls (scaled_dot_product_attention, with a boolean mask
+              for a window shorter than the prompt; with a softcap,
+              which SDPA lacks, torch.compile'd flex_attention with the
+              softcap as its score_mod; none for the RG-LRU scan) with
+              CUDA events (``ms``: includes the wrapper's host path
+              where it is the longer);
 4. parity  -- reduced() granite-8b, recurrentgemma-2b, granite-moe-1b-
-              a400m, olmoe-1b-7b, pixtral-12b and whisper-large-v3 in
-              fp32: the CUDA model (kernels) against the CPU model (plain
-              versions) on the same params and random extras (patch
-              embeddings, encoder frames): prefill logits, every cache
-              leaf (whisper's cross_k/cross_v too), the MoE router load
-              and loss, the encoder's output, and decode steps
-              (recurrentgemma's run past its window of 16, so the ring
-              wraps), 2e-3;
+              a400m, olmoe-1b-7b, pixtral-12b, whisper-large-v3,
+              gemma2-9b (also with the int8 KV cache), gemma3-27b and
+              xlstm-350m in fp32: the CUDA model (kernels) against the
+              CPU model (plain versions) on the same params and random
+              extras (patch embeddings, encoder frames): prefill logits,
+              every cache leaf (whisper's cross_k/cross_v too; int8
+              codes to one step), the MoE router load and loss, the
+              encoder's output, and decode steps (recurrentgemma's,
+              gemma2's and gemma3's run past their window of 16, so the
+              ring wraps), 2e-3;
 5. serve   -- the main paths, one after the other, each engine freed
               before the next: ServingEngine for full-width granite-8b
               (36 layers, d_model 4096), recurrentgemma-2b (26 layers,
               d_model 2560), granite-moe-1b-a400m (24 layers, d_model
               1024, 32 experts top-8), pixtral-12b (40 layers, d_model
-              5120) and whisper-large-v3 (32 + 32 layers, d_model 1280),
-              random weights from a seed; cold_start(), then every entry:
+              5120), whisper-large-v3 (32 + 32 layers, d_model 1280),
+              gemma2-9b (42 layers, d_model 3584; prompt 4608, past its
+              4096 window), gemma3-27b (62 layers, d_model 5376; prompt
+              2048, past its 1024 window) and xlstm-350m (24 mLSTM /
+              sLSTM layers, d_model 1024; prompt 512; no kernel, its
+              scans a Python loop over time), random weights from a
+              seed; cold_start(), then every entry:
               3 ``generate`` requests of 16 new tokens, 2 of
               ``vision_generate`` / ``transcribe`` with random patch
-              embeddings / frames from a seed, and 1 ``score`` request,
+              embeddings / frames from a seed, and 1 ``score`` request
+              (on gemma2 and gemma3 over the prompt's first 512 tokens),
               with the launch counters set to 0 just before each path and
               read just after (counted per entry: a prefill or forward
               launches flash once per attention layer, cross-attention
@@ -69,7 +86,11 @@ Phases, each raising on failure (the script then exits non-zero):
               none), so the counts stay exact.  Then each generating
               entry's graph against the same engine's eager step on the
               same prefill: logits within 2e-3 of their scale and
-              identical greedy tokens over the 15 steps;
+              identical greedy tokens over the 15 steps.  On
+              gemma2-9b also ``kv_quant="int8"`` on the same weights:
+              cache bytes against bf16, launches (decode only from the
+              21 local layers), greedy agreement with the bf16 cache,
+              its phase-6 breakdown, graph against eager;
 5b. launcher -- the reference bench's archs (granite-moe-1b-a400m,
               whisper-large-v3, pixtral-12b) through
               ``repro_torch.launch.serve.run_service`` at their full-width
@@ -146,7 +167,16 @@ PATHS = {"granite-8b": dict(batch=4, prefill=512, cache=640, new=16),
                                       new=16),
          "pixtral-12b": dict(batch=4, prefill=512, cache=640, new=16),
          # the decoder's 448-token text context (arXiv:2212.04356)
-         "whisper-large-v3": dict(batch=4, prefill=224, cache=448, new=16)}
+         "whisper-large-v3": dict(batch=4, prefill=224, cache=448, new=16),
+         # prompts past the local window, so the decode wraps the ring;
+         # ``score`` on the prompt's first 512 tokens (at full length the
+         # fp32 logits are 18.9 / 8.6 GB)
+         # kv_quant: served again with that KV cache, on the same weights
+         "gemma2-9b": dict(batch=4, prefill=4608, cache=4624, new=16,
+                           score=512, kv_quant="int8"),
+         "gemma3-27b": dict(batch=4, prefill=2048, cache=2064, new=16,
+                            score=512),
+         "xlstm-350m": dict(batch=4, prefill=512, cache=528, new=16)}
 # the reference bench's archs and workload length
 LAUNCHER_ARCHS = ("granite-moe-1b-a400m", "whisper-large-v3", "pixtral-12b")
 N_LAUNCHER_REQUESTS = 24
@@ -380,14 +410,20 @@ def _dtypes():
     return ((torch.bfloat16, "bfloat16"), (torch.float32, "float32"))
 
 
-def _attn_shape(arch):
-    """(H, K, hd, window) of the path's attention layers."""
+def _attn_shape(arch, local=True):
+    """(H, K, hd, window) of the path's attention layers: its local ones
+    where it has any and ``local`` is set, else its global ones."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import block_pattern_of
     cfg = get_config(arch)
-    local = "attn_local" in block_pattern_of(cfg)
+    local = local and "attn_local" in block_pattern_of(cfg)
     return (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             cfg.window_size if local else None)
+
+
+def _softcap(arch):
+    from repro_torch.configs import get_config
+    return get_config(arch).attn_softcap
 
 
 def _prefill_len(arch):
@@ -397,12 +433,31 @@ def _prefill_len(arch):
     return PATHS[arch]["prefill"] + get_config(arch).vision_tokens
 
 
+def _flex_attention():
+    """``torch.compile``'d flex_attention: the one PyTorch call that
+    computes attention with a softcap (SDPA has none), for ``library_ms``
+    only -- the port never calls it.  Inductor and Triton compile in this
+    process (no pool of workers) and cache under build/."""
+    import os
+
+    import torch
+    import torch._inductor.config as inductor_config
+    from torch.nn.attention.flex_attention import flex_attention
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(REPO / "build" / sub))
+    inductor_config.compile_threads = 1
+    return torch.compile(flex_attention, dynamic=False)
+
+
 def flash_cases(gen, arch, small, *, sq=None, skv=None, causal=True,
-                what="prefill"):
+                what="prefill", local=True):
     """Flash kernel vs plain on the card at one of the path's shapes --
-    by default its longest causal prefill; ``sq``/``skv``/``causal`` name
-    another (whisper's encoder and cross attention) -- and at ``small``
-    cases; returns the summary entry (timed in bf16)."""
+    by default its longest causal prefill through its local layers where
+    it has any (``local=False``: its global ones), with the path's
+    softcap; ``sq``/``skv``/``causal`` name another (whisper's encoder
+    and cross attention) -- and at ``small`` cases; returns the summary
+    entry (timed in bf16)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
@@ -410,11 +465,13 @@ def flash_cases(gen, arch, small, *, sq=None, skv=None, causal=True,
     B = PATHS[arch]["batch"]
     Sq = sq or _prefill_len(arch)
     Skv = skv or Sq
-    H, K, hd, window = _attn_shape(arch)
+    H, K, hd, window = _attn_shape(arch, local)
+    cap = _softcap(arch)
     G = H // K
     shape = (f"{what}: B={B} H={H} K={K} Sq={Sq} Skv={Skv} hd={hd} "
-             f"window={window} {'causal' if causal else 'no mask'}")
-    kw = dict(causal=causal, window=window)
+             f"window={window} softcap={cap} "
+             f"{'causal' if causal else 'no mask'}")
+    kw = dict(causal=causal, window=window, softcap=cap)
     main = {}
 
     def model_layout(dt):
@@ -434,11 +491,11 @@ def flash_cases(gen, arch, small, *, sq=None, skv=None, causal=True,
         main[dn] = _check("flash_attention", got, want, dn, shape,
                           averaged=not causal)
         del args, got, want
-        for (b, h, kk, s_q, s_kv, d, c, win, cap, case) in small:
+        for (b, h, kk, s_q, s_kv, d, c, win, c_cap, case) in small:
             q = _rand(gen, (b, h, s_q, d), dt)
             k = _rand(gen, (b, kk, s_kv, d), dt)
             v = _rand(gen, (b, kk, s_kv, d), dt)
-            ckw = dict(causal=c, window=win, softcap=cap)
+            ckw = dict(causal=c, window=win, softcap=c_cap)
             got = flash_attention(q, k, v, **ckw)
             torch.cuda.synchronize()
             _check("flash_attention", got, flash_attention_plain(q, k, v,
@@ -453,22 +510,47 @@ def flash_cases(gen, arch, small, *, sq=None, skv=None, causal=True,
         return [model_layout(dt) for _ in range(n_sets(one))]
 
     sets = make_sets()
-    # SDPA has no window; it computes the same function only where the
-    # window covers the whole prompt
-    if window is not None and window < Skv:
-        raise RuntimeError("flash timing: SDPA cannot stand in for a "
-                           "window shorter than the prompt")
     n0 = flash_attention.launches
     ms = time_ms(lambda q, k, v: flash_attention(q, k, v, **kw), sets)
     plain_ms = time_ms(lambda q, k, v: flash_attention_plain(q, k, v, **kw),
                        sets)
-    lib_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, enable_gqa=True), sets)
+    if cap is not None:
+        # SDPA has no softcap: flex_attention with the softcap as its
+        # score_mod and the causal window as a block mask (built once,
+        # outside the timing), held to the plain version first
+        from torch.nn.attention.flex_attention import create_block_mask
+
+        def keep(b, h, qi, ki):
+            m = ki <= qi
+            return m & (ki > qi - window) if window is not None else m
+
+        def capped(sc, b, h, qi, ki):
+            return cap * torch.tanh(sc / cap)
+        assert causal, "a softcapped path without a causal mask"
+        bm = create_block_mask(keep, None, None, Sq, Skv, device="cuda")
+        flex = _flex_attention()
+
+        def lib(q, k, v):
+            return flex(q, k, v, score_mod=capped, block_mask=bm,
+                        enable_gqa=True)
+        _check("flex_attention (library)", lib(*sets[0]),
+               flash_attention_plain(*sets[0], **kw), "bfloat16", shape)
+        lib_ms = time_ms(lib, sets)
+    elif window is not None and window < Skv:
+        # SDPA takes a sliding window only as a boolean mask
+        i = torch.arange(Sq, device="cuda")[:, None]
+        j = torch.arange(Skv, device="cuda")[None, :]
+        mask = (j <= i) & (j > i - window)
+        lib_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), sets)
+    else:
+        lib_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), sets)
     flash_attention.launches = n0  # timing launches are not the path's
     # the (q, k) pairs per head the mask keeps (causal: inside the window)
     pairs = (sum(min(i + 1, window or Skv) for i in range(Sq)) if causal
              else Sq * Skv)
-    flops = 4 * B * H * pairs * hd
+    flops = 4 * B * H * pairs * hd  # the softcap's tanh is not counted
     byts = 2 * (2 * B * H * Sq * hd) + 2 * (2 * B * K * Skv * hd)
     return _entry("flash_attention", "flash_attention.cu",
                   "src/repro/kernels/flash_attention.py:92", arch, shape,
@@ -505,13 +587,15 @@ def _all_valid(S, B, q_pos):
             torch.full((B,), q_pos, dtype=torch.int32, device="cuda"))
 
 
-def decode_cases(gen, arch, timed, small, *, all_valid=(), slots=None):
+def decode_cases(gen, arch, timed, small, *, all_valid=(), slots=None,
+                 local=True):
     """Decode kernel vs plain on the card at the path's decode shape --
     a partly filled cache (``timed="partly filled"``: mid-generation in
-    a position-indexed cache), a wrapped ring, or with ``slots`` (the
-    encoder's frames) a cache whose every slot is valid (``timed="all
-    valid"``: cross attention) -- and at ``small`` cases and
-    ``all_valid`` ones (b, kv heads, G, S, hd, label); returns the
+    a position-indexed cache), a wrapped ring (its local layers'; with
+    ``local=False`` its global ones'), or with ``slots`` (the encoder's
+    frames) a cache whose every slot is valid (``timed="all valid"``:
+    cross attention), with the path's softcap -- and at ``small`` cases
+    and ``all_valid`` ones (b, kv heads, G, S, hd, label); returns the
     summary entry for the ``timed`` one (bf16)."""
     import torch
     import torch.nn.functional as F
@@ -519,7 +603,8 @@ def decode_cases(gen, arch, timed, small, *, all_valid=(), slots=None):
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_plain)
     spec = PATHS[arch]
-    H, K, hd, window = _attn_shape(arch)
+    H, K, hd, window = _attn_shape(arch, local)
+    cap = _softcap(arch)
     G = H // K
     B = spec["batch"]
     if slots:
@@ -530,7 +615,7 @@ def decode_cases(gen, arch, timed, small, *, all_valid=(), slots=None):
         S = min(cache, window or cache)
         layouts = {"partly filled": _filled(_prefill_len(arch) + 8, S, B),
                    "wrapped ring": _ring(S, S + 7, B)}
-    shape = f"B={B} K={K} G={G} S={S} hd={hd} window={window}"
+    shape = f"B={B} K={K} G={G} S={S} hd={hd} window={window} softcap={cap}"
     main = {}
     for dt, dn in _dtypes():
         # main path shape: q (B,1,K,G,hd) and the per-layer cache
@@ -542,14 +627,15 @@ def decode_cases(gen, arch, timed, small, *, all_valid=(), slots=None):
             if what == "partly filled" and timed != what:
                 continue  # a local ring is never partly filled mid-path
             args = (q, kc.transpose(1, 2), vc.transpose(1, 2), qp, kv)
-            got = decode_attention(*args, window=window)
+            got = decode_attention(*args, window=window, softcap=cap)
             torch.cuda.synchronize()
             err = _check("decode_attention", got,
-                         decode_attention_plain(*args, window=window), dn,
+                         decode_attention_plain(*args, window=window,
+                                                softcap=cap), dn,
                          f"{shape} {what}")
             if what == timed:
                 main[dn] = err
-        for (b, kk, g, s, d, win, cap, what) in small:
+        for (b, kk, g, s, d, win, c_cap, what) in small:
             qs = _rand(gen, (b, kk, g, d), dt)
             ks = _rand(gen, (b, kk, s, d), dt)
             vs = _rand(gen, (b, kk, s, d), dt)
@@ -561,7 +647,7 @@ def decode_cases(gen, arch, timed, small, *, all_valid=(), slots=None):
                     torch.int32).expand(b, s).contiguous()
                 qp = torch.full((b,), s - 6, dtype=torch.int32,
                                 device="cuda")
-            kw = dict(window=win, softcap=cap)
+            kw = dict(window=win, softcap=c_cap)
             got = decode_attention(qs, ks, vs, qp, kv, **kw)
             torch.cuda.synchronize()
             _check("decode_attention", got,
@@ -595,13 +681,35 @@ def decode_cases(gen, arch, timed, small, *, all_valid=(), slots=None):
     if window is not None:
         mask &= kv > qp[:, None] - window
     n0 = decode_attention.launches
-    ms = time_ms(lambda q, k, v: decode_attention(q, k, v, qp, kv,
-                                                  window=window), sets)
+    ms = time_ms(lambda q, k, v: decode_attention(
+        q, k, v, qp, kv, window=window, softcap=cap), sets)
     plain_ms = time_ms(lambda q, k, v: decode_attention_plain(
-        q, k, v, qp, kv, window=window), sets)
-    lib_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-        q.reshape(B, K * G, 1, hd), k, v, attn_mask=mask[:, None, None],
-        enable_gqa=True), sets)
+        q, k, v, qp, kv, window=window, softcap=cap), sets)
+    if cap is None:
+        lib_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q.reshape(B, K * G, 1, hd), k, v, attn_mask=mask[:, None, None],
+            enable_gqa=True), sets)
+    else:
+        # SDPA has no softcap: flex_attention with the softcap and the
+        # slot mask (from kv_pos and q_pos, as the kernel reads them) in
+        # its score_mod, so that the one call takes the kernel's inputs;
+        # held to the plain version first
+        def capped(sc, b, h, qi, ki):
+            p, at = kv[b, ki], qp[b]
+            ok = (p >= 0) & (p <= at)
+            if window is not None:
+                ok = ok & (p > at - window)
+            return torch.where(ok, cap * torch.tanh(sc / cap), -math.inf)
+        flex = _flex_attention()
+
+        def lib(q, k, v):
+            return flex(q.reshape(B, K * G, 1, hd), k, v, score_mod=capped,
+                        enable_gqa=True).reshape(B, K, G, hd)
+        _check("flex_attention (library)", lib(*sets[0]),
+               decode_attention_plain(*sets[0], qp, kv, window=window,
+                                      softcap=cap),
+               "bfloat16", f"{shape} {timed}", averaged=True)
+        lib_ms = time_ms(lib, sets)
     decode_attention.launches = n0
     # what this run's data needs: k and v of the valid slots, every slot
     # position, q and o
@@ -614,7 +722,8 @@ def decode_cases(gen, arch, timed, small, *, all_valid=(), slots=None):
                   f"{shape} {timed}", main["bfloat16"], ms, plain_ms,
                   lib_ms, flops, byts, "bfloat16",
                   (make_sets, lambda q, k, v: decode_attention(
-                      q, k, v, qp, kv, window=window), "decode_"))
+                      q, k, v, qp, kv, window=window, softcap=cap),
+                   "decode_"))
 
 
 def rglru_cases(gen, arch):
@@ -740,16 +849,16 @@ def _random_extras(cfg, B, rng, entry=None):
     return out
 
 
-def phase_parity(arch, n_dec):
-    """The reduced config in fp32, CUDA (kernels) against CPU (plain),
-    with random patch embeddings / encoder frames where the config takes
-    them: prefill logits, the encoder's output, every cache leaf after
-    the prefill and after the last of ``n_dec`` decode steps, and every
-    step's logits."""
+def phase_parity(arch, n_dec, **cfg_kw):
+    """The reduced config (with ``cfg_kw`` changes) in fp32, CUDA
+    (kernels) against CPU (plain), with random patch embeddings / encoder
+    frames where the config takes them: prefill logits, the encoder's
+    output, every cache leaf after the prefill and after the last of
+    ``n_dec`` decode steps, and every step's logits."""
     import torch
     from repro_torch.configs import get_reduced
     from repro_torch.models import model as M
-    cfg = get_reduced(arch)
+    cfg = get_reduced(arch).with_(**cfg_kw)
     params = M.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
 
     def to_cuda(tree):
@@ -788,7 +897,8 @@ def phase_parity(arch, n_dec):
     want = dict(_leaves(cc))
     for name, got in _leaves(cg):
         errs.append(_close(got, want[name], f"decoded cache {name}"))
-    log(f"[parity] {arch} reduced fp32, CUDA kernels vs CPU plain: "
+    log(f"[parity] {arch} {cfg_kw or ''} reduced fp32, CUDA kernels vs "
+        f"CPU plain: "
         f"{len(want)} cache leaves, aux {sorted(ac)}, extras {sorted(ex)}, "
         f"{n_dec} decode steps to position {vt + T0 + n_dec - 1} (window "
         f"{cfg.window_size}, {cfg.encoder_seq} encoder frames): max abs "
@@ -796,11 +906,20 @@ def phase_parity(arch, n_dec):
 
 
 def _close(got, want, what):
+    """Max abs difference, held to MODEL_TOL; int8 KV codes to one step
+    (a value on a rounding boundary may land either side)."""
     import torch
     got, want = got.cpu(), want.cpu()
+    err = (got.float() - want.float()).abs().max().item()
+    if got.dtype == torch.int8:
+        if want.dtype != torch.int8 or err > 1:
+            raise RuntimeError(f"parity {what}: int8 codes differ by {err}")
+        if err:
+            log(f"[parity] {what}: int8 codes differ by one step")
+        return 0.0  # codes, not values: kept out of the logged max
     torch.testing.assert_close(got, want, **MODEL_TOL,
                                msg=lambda m: f"parity {what}: {m}")
-    return (got.float() - want.float()).abs().max().item()
+    return err
 
 
 # --------------------------------------------------------------- phase 5
@@ -816,14 +935,17 @@ def _per_call(cfg):
     """Kernel launches of one call, from the config's layers: flash and
     rglru_scan in a prefill or forward (flash once per attention layer,
     cross-attention layer and encoder layer), decode in a decode step
-    (once per attention and cross-attention layer)."""
+    (once per attention and cross-attention layer, but for the global
+    layers of an int8 KV cache, which decode in plain PyTorch).  mLSTM
+    and sLSTM blocks launch none."""
     from repro_torch.models import model as M
     pat, n_per, n_rem = M.layer_layout(cfg)
     kinds = list(pat) * n_per + list(pat[:n_rem])
     n_attn = sum(k.startswith("attn") for k in kinds)
+    n_quant = kinds.count("attn_global") if cfg.kv_quant == "int8" else 0
     n_cross = len(kinds) if cfg.encoder_layers else 0
     return {"flash_attention": n_attn + n_cross + cfg.encoder_layers,
-            "decode_attention": n_attn + n_cross,
+            "decode_attention": n_attn - n_quant + n_cross,
             "rglru_scan": kinds.count("rglru")}
 
 
@@ -857,7 +979,8 @@ def phase_serve(arch, entries):
            else "")
     log(f"[serve] {arch} full width: {cfg.n_layers} layers{enc}, d_model "
         f"{cfg.d_model}, {M.param_count(cfg)} params "
-        f"({cfg.dtype}); batch {B}, prompt {P}, max_len {CACHE} (+ "
+        f"({cfg.dtype}); batch {B}, prompt {P} (score "
+        f"{spec.get('score', P)}), max_len {CACHE} (+ "
         f"{cfg.vision_tokens} vision slots), {NEW} new tokens; requests "
         f"{requests}")
     log(f"[serve] {arch} cold_start_s {cold:.4f} by_group "
@@ -873,12 +996,15 @@ def phase_serve(arch, entries):
             log(f"[serve]   compile.{entry}: decode graph warm-up + "
                 f"capture {graph.capture_s:.4f} s, "
                 f"{graph.launches()['decode_attention']} decode launches "
-                f"a replay")
+                f"a replay; static caches {_nbytes(graph.caches) / 1e9:.4f}"
+                f" GB")
 
     counters = _kernel_counters()
     rng = np.random.default_rng(7)
+    SCORE = spec.get("score", P)
     # the requests' inputs are drawn before the counters are set to 0
-    inputs = [(e, rng.integers(0, cfg.vocab, (B, P)),
+    inputs = [(e, rng.integers(0, cfg.vocab, (B, SCORE if e == "score"
+                                              else P)),
                _random_extras(cfg, B, rng, e)) for e in requests]
     for fn in counters.values():
         fn.launches = 0
@@ -899,7 +1025,8 @@ def phase_serve(arch, entries):
                            "kernels as expected")
     for entry, toks, out in outs:
         if entry == "score":
-            if out.shape != (B, P, cfg.vocab) or not np.isfinite(out).all():
+            if out.shape != (B, SCORE, cfg.vocab) \
+                    or not np.isfinite(out).all():
                 raise RuntimeError("score: logits not finite / wrong shape")
         elif out.shape != (B, NEW) or out.min() < 0 \
                 or out.max() >= cfg.vocab:
@@ -947,6 +1074,79 @@ def phase_serve(arch, entries):
     for name, fn in counters.items():  # the checks are not the path's
         fn.launches = counts[name]
     return eng
+
+
+def _nbytes(tree):
+    return sum(t.numel() * t.element_size() for _, t in _leaves(tree))
+
+
+def _global_bytes(cfg, caches):
+    """Bytes of the cache's global attention layers."""
+    from repro_torch.models import model as M
+    return sum(_nbytes(caches[group][f"pos{i}"])
+               for group, pattern, _ in M._groups(cfg)
+               for i, kind in enumerate(pattern) if kind == "attn_global")
+
+
+def phase_kv_quant(eng):
+    """The path's config with its ``kv_quant`` KV cache (int8: the global
+    layers' k and v as int8 codes with fp32 scales), served on the bf16
+    engine's parameters (no second init; ``score`` left lazy and
+    unbuilt): the caches' bytes beside the bf16 engine's, the launches of
+    3 ``generate`` requests (decode only from the local layers: the
+    global ones decode in plain PyTorch), the share of greedy tokens
+    that agree with the bf16 engine's on the same requests, the int8
+    engine's breakdown (phase 6, beside the bf16 one just before it) and
+    its graph against its eager step."""
+    import gc
+
+    import torch
+    from repro_torch.serving import LoadPolicy, ServingEngine
+    spec = PATHS[eng.cfg.name]
+    B, P, CACHE, NEW = (spec["batch"], spec["prefill"], spec["cache"],
+                        spec["new"])
+    cfg = eng.cfg.with_(kv_quant=spec["kv_quant"])
+    params = eng._params
+    q8 = ServingEngine(cfg, policy=LoadPolicy(
+        lazy_names=frozenset({"compile.score"})), batch_size=B,
+        prefill_len=P, max_len=CACHE, device="cuda")
+    q8.registry["weights.core"].build = lambda: params
+    cold = q8.cold_start()
+    caches = {name: e.registry["compile.generate"].value["graph"].caches
+              for name, e in (("bf16", eng), ("int8", q8))}
+    log(f"[int8] {cfg.name} kv_quant {cfg.kv_quant} on the bf16 engine's weights: "
+        f"cold_start_s {cold:.4f}; decode graph caches "
+        + ", ".join(f"{n} {_nbytes(c) / 1e9:.4f} GB (global layers "
+                    f"{_global_bytes(cfg, c) / 1e9:.4f} GB)"
+                    for n, c in caches.items()))
+    counters = _kernel_counters()
+    rng = np.random.default_rng(17)
+    reqs = [rng.integers(0, cfg.vocab, (B, P)) for _ in range(3)]
+    for fn in counters.values():
+        fn.launches = 0
+    outs8 = [q8.serve("generate", t, max_new_tokens=NEW)[0] for t in reqs]
+    got = {n: fn.launches for n, fn in counters.items()}
+    want = _want(cfg, len(reqs), (NEW - 1) * len(reqs))
+    log(f"[int8] {cfg.name} launches {got} (want {want}: per prefill / "
+        f"decode step {_per_call(cfg)})")
+    if got != want:
+        raise RuntimeError(f"int8: launches {got}, want {want}")
+    counts = dict(got)
+    outs16 = [eng.serve("generate", t, max_new_tokens=NEW)[0] for t in reqs]
+    agree = float(np.mean([np.mean(a == b) for a, b in zip(outs8, outs16)]))
+    log(f"[int8] {cfg.name} greedy tokens agreeing with the bf16 cache's: "
+        f"{agree:.4f} of {len(reqs) * B * NEW}; int8 tokens[0] "
+        f"{outs8[0][0].tolist()}")
+    phase_breakdown(q8)
+    check_graph_vs_eager(q8, "generate", rng)
+    for name, fn in counters.items():  # the comparisons are not the path's
+        fn.launches = counts[name]
+    for comp in q8.registry.values():
+        comp.drop()
+    del q8, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def check_graph_vs_eager(eng, entry, rng):
@@ -1118,8 +1318,9 @@ def phase_breakdown(eng):
     (``vision_generate``, ``transcribe``) with random extras where it has
     one, else a ``generate``."""
     import torch
-    arch = eng.cfg.name
-    spec = PATHS[arch]
+    spec = PATHS[eng.cfg.name]
+    arch = eng.cfg.name + (f" kv_quant {eng.cfg.kv_quant}"
+                           if eng.cfg.kv_quant else "")
     B, P, NEW = spec["batch"], spec["prefill"], spec["new"]
     entry = eng.entries()[-2]  # the frontend entry, else generate
     exes, params = eng.registry[f"compile.{entry}"].value, eng._params
@@ -1177,21 +1378,25 @@ def phase_breakdown(eng):
 
 def profile_request(arch, entry, name, run):
     """torch.profiler over one request: the device's busy share of the
-    wall time, and device time by kernel kind."""
+    wall time, and device time by kernel kind.  Only device activity is
+    traced (no host op is read), and the device events are read from
+    the raw trace: building the profiler's event tree took minutes for
+    xlstm-350m's ~2.5 x 10^5 launches a request."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_kind: dict[str, float] = {}
     by_name: dict[str, float] = {}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+    n_dev = 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
             continue
-        us = ev.time_range.elapsed_us()
-        low = ev.name.lower()
+        n_dev += 1
+        us = (ev.end_ns() - ev.start_ns()) / 1e3
+        low = ev.name().lower()
         kind = ("flash_attention" if "flash_fwd" in low else
                 "decode_attention" if "decode_" in low else
                 "rglru_scan" if "rglru_" in low else
@@ -1199,15 +1404,15 @@ def profile_request(arch, entry, name, run):
                     "gemm", "nvjet", "xmma", "cutlass", "gemv")) else
                 "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + us
-        by_name[ev.name] = by_name.get(ev.name, 0.0) + us
+        by_name[ev.name()] = by_name.get(ev.name(), 0.0) + us
     busy = sum(by_kind.values())
     if busy == 0:
         log(f"[breakdown] {arch} {name} device busy share: not measured "
             "(the profiler recorded no device events)")
         return
     log(f"[breakdown] {arch} profiled {name} {entry} request: wall "
-        f"{wall_us / 1e3:.2f} ms, "
-        f"device busy {busy / 1e3:.2f} ms (share {busy / wall_us:.4f}, "
+        f"{wall_us / 1e3:.2f} ms, {n_dev} device events, busy "
+        f"{busy / 1e3:.2f} ms (share {busy / wall_us:.4f}, "
         f"idle {1 - busy / wall_us:.4f}; profiler overhead included)")
     for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         log(f"[breakdown]   {name} {kind}: {us / 1e3:.3f} ms "
@@ -1646,6 +1851,35 @@ def main():
                                  (1, 2, 1, 33, 64, "hd 64 G 1 all S 33")],
                              slots=get_config(
                                  "whisper-large-v3").encoder_seq)],
+            # gemma2: hd 256, G 2, softcap 50 on every layer, a 4096-key
+            # window on the local ones; gemma3: hd 128, G 2, a 1024-key
+            # window on the local ones, no softcap
+            "gemma2-9b": [
+                flash_cases(gen, "gemma2-9b", [
+                    (1, 4, 2, 200, 200, 256, True, 48, 50.0,
+                     "hd 256 G 2 S 200 window 48 softcap 50"),
+                    (2, 4, 2, 130, 130, 256, True, None, 50.0,
+                     "hd 256 G 2 S 130 softcap 50")], what="local prefill"),
+                flash_cases(gen, "gemma2-9b", [], what="global prefill",
+                            local=False),
+                decode_cases(gen, "gemma2-9b", "wrapped ring", [
+                    (2, 2, 2, 150, 256, 64, 50.0,
+                     "hd 256 G 2 ring+window+softcap"),
+                    (1, 2, 2, 200, 256, None, 50.0,
+                     "hd 256 G 2 softcap ragged")]),
+                decode_cases(gen, "gemma2-9b", "partly filled", [],
+                             local=False)],
+            "gemma3-27b": [
+                flash_cases(gen, "gemma3-27b", [
+                    (1, 4, 2, 300, 300, 128, True, 64, None,
+                     "hd 128 G 2 S 300 window 64")], what="local prefill"),
+                flash_cases(gen, "gemma3-27b", [], what="global prefill",
+                            local=False),
+                decode_cases(gen, "gemma3-27b", "wrapped ring", [
+                    (2, 2, 2, 150, 128, 64, None, "hd 128 G 2 ring+window")]),
+                decode_cases(gen, "gemma3-27b", "partly filled", [],
+                             local=False)],
+            "xlstm-350m": [],  # no kernel: mLSTM / sLSTM in plain PyTorch
         }
     with _Phase("4 parity"):
         phase_parity("granite-8b", 5)
@@ -1654,12 +1888,19 @@ def main():
         phase_parity("olmoe-1b-7b", 5)
         phase_parity("pixtral-12b", 5)
         phase_parity("whisper-large-v3", 5)
+        # past the reduced windows of 16
+        phase_parity("gemma2-9b", 20)
+        phase_parity("gemma3-27b", 20)
+        phase_parity("xlstm-350m", 5)
+        phase_parity("gemma2-9b", 20, kv_quant="int8")
     for arch, entries in kernels.items():
         with _Phase(f"5 serve + 6 breakdown {arch}"):
             eng = phase_serve(arch, entries)
             phase_breakdown(eng)
             if eng.cfg.moe is not None:
                 phase_moe_timing(eng)
+            if PATHS[arch].get("kv_quant"):
+                phase_kv_quant(eng)
             del eng  # free this path's weights before the next path's
             gc.collect()
             torch.cuda.empty_cache()

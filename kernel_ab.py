@@ -59,11 +59,14 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other", type=Path, help="root of the other checkout")
-    # the decoder-only paths: one causal prefill shape and one self
-    # cache (whisper's encoder and cross shapes are timed by chip_smoke.py)
+    # the decoder-only paths with attention: one causal prefill shape and
+    # one self cache, the local layers' where the path has any (whisper's
+    # encoder and cross shapes are timed by chip_smoke.py)
     ap.add_argument("--arch", default="granite-8b",
                     choices=[a for a in cs.PATHS
-                             if not get_config(a).encoder_layers])
+                             if not get_config(a).encoder_layers
+                             and cs._per_call(get_config(a))[
+                                 "flash_attention"]])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: torch.cuda.is_available() is false")
@@ -77,6 +80,7 @@ def main():
     spec = cs.PATHS[args.arch]
     B, S = spec["batch"], cs._prefill_len(args.arch)  # vision prefix too
     H, K, hd, window = cs._attn_shape(args.arch)
+    cap = cs._softcap(args.arch)
     G = H // K
     dt = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -101,12 +105,14 @@ def main():
     # case: (wrapper of a tree -> timed fn, input sets, iters, kernel name)
     cases = {
         "flash_attention": (lambda fl: lambda q, k, v: fl(
-            q, k, v, causal=True, window=window), fsets, 50, "flash_fwd"),
+            q, k, v, causal=True, window=window, softcap=cap), fsets, 50,
+            "flash_fwd"),
         "decode_attention": (lambda de: lambda q, k, v: de(
-            q, k, v, qp, kv, window=window), dsets, 200, "decode_"),
+            q, k, v, qp, kv, window=window, softcap=cap), dsets, 200,
+            "decode_"),
     }
-    shapes = (f"flash B={B} H={H} K={K} S={S} hd={hd} window={window}; "
-              f"decode B={B} K={K} G={G} S={Sc} hd={hd} "
+    shapes = (f"flash B={B} H={H} K={K} S={S} hd={hd} window={window} "
+              f"softcap={cap}; decode B={B} K={K} G={G} S={Sc} hd={hd} "
               f"({'wrapped ring' if window else 'partly filled'}); bf16")
     R = get_config(args.arch).rglru_dim
     if R:

@@ -1,7 +1,8 @@
 """Building blocks of the model (PyTorch port of
 ``repro.models.layers``: global, local, bidirectional (encoder) and
-cross attention with optional QK-norm, the gated MLP, the
-capacity-routed MoE layer and the RG-LRU recurrent block).
+cross attention with optional QK-norm and an optional int8 KV cache,
+the gated MLP, the capacity-routed MoE layer, the RG-LRU recurrent
+block and xLSTM's mLSTM and sLSTM blocks).
 
 Each block keeps the reference's three parts: ``*_template(cfg)`` (a
 flat dict ``name -> ParamSpec``), ``*_apply`` (full sequence) and
@@ -13,7 +14,11 @@ Attention and the RG-LRU scan go through ``repro_torch.kernels.ops``:
 on a CUDA tensor that launches the hand-written kernels, on a CPU
 tensor it runs their plain PyTorch versions.  ``attention`` below is the
 reference's einsum path in model layout, kept as the plain yardstick
-the tests hold the kernel wrappers against.
+the tests hold the kernel wrappers against.  Three paths have no Pallas
+kernel in the reference and stay plain PyTorch on every device: decode
+over an int8 KV cache (``_attn_decode_quant``, the reference's XLA
+path) and the mLSTM and sLSTM scans (a Python loop over time, fp32
+state).
 
 Numerics policy (as the reference): parameters and activations are
 ``cfg.tdtype``; matmuls accumulate in fp32 (cuBLAS and the CPU GEMMs do
@@ -76,9 +81,11 @@ def rms_norm(x, scale, eps):
 
 
 def softcap(x, cap):
+    """cap * tanh(x / cap); x is left alone, and only one new tensor is
+    made (the logits it caps may be GBs)."""
     if cap is None:
         return x
-    return cap * torch.tanh(x / cap)
+    return (x / cap).tanh_().mul_(cap)
 
 
 def rope(x, positions, theta):
@@ -254,9 +261,14 @@ def attn_apply(p, cfg, x, positions, *, kind="attn_global", encoder_kv=None,
             # the prefill starts at position 0, so the tail maps to slots
             # [0, n): a plain pad
             pad = slots - n
-            cache = {"k": F.pad(kt, (0, 0, 0, 0, 0, pad)),
-                     "v": F.pad(vt, (0, 0, 0, 0, 0, pad)),
-                     "pos": F.pad(tail_pos, (0, pad), value=-1)}
+            cache = {}
+            if cfg.kv_quant == "int8" and kind == "attn_global":
+                (kt, ks), (vt, vs) = kv_quantize(kt), kv_quantize(vt)
+                cache = {"k_scale": F.pad(ks, (0, 0, 0, pad)),
+                         "v_scale": F.pad(vs, (0, 0, 0, pad))}
+            cache.update(k=F.pad(kt, (0, 0, 0, 0, 0, pad)),
+                         v=F.pad(vt, (0, 0, 0, 0, 0, pad)),
+                         pos=F.pad(tail_pos, (0, pad), value=-1))
         else:
             # full local ring buffer: slot = position % slots, which for
             # the last `slots` positions is a cyclic roll of the tail
@@ -269,6 +281,35 @@ def attn_apply(p, cfg, x, positions, *, kind="attn_global", encoder_kv=None,
     return y, cache
 
 
+def kv_quantize(t):
+    """Per (token, kv-head) symmetric int8: t (B, S, K, hd) -> (int8
+    codes, fp32 scales (B, S, K)); rounds half to even, as jnp.round."""
+    t32 = t.to(f32)
+    scale = torch.clamp_min(t32.abs().amax(dim=-1) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(t32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _attn_decode_quant(q, cache, *, window, softcap_val, q_positions):
+    """Decode attention over an int8 KV cache (the reference's XLA path,
+    plain PyTorch on every device).  k's scale rescales each score
+    column and v's scale rescales p before the PV product, so no
+    dequantized copy of the cache is formed (the codes are widened to
+    fp32 for the products).  q: (B, 1, K, G, hd)."""
+    scale = q.shape[-1] ** -0.5
+    kq, ks = cache["k"], cache["k_scale"]  # (B,T,K,hd) i8, (B,T,K) f32
+    vq, vs = cache["v"], cache["v_scale"]
+    s = torch.einsum("bskgd,btkd->bkgst", q.to(f32), kq.to(f32))
+    s = s * ks.permute(0, 2, 1)[:, :, None, None, :] * scale
+    s = softcap(s, softcap_val)
+    mask = _attn_mask(q_positions, cache["pos"], True, window)
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    p = p * vs.permute(0, 2, 1)[:, :, None, None, :]
+    o = torch.einsum("bkgst,btkd->bskgd", p, vq.to(f32))
+    return o.to(q.dtype)
+
+
 def attn_decode(p, cfg, x, positions, cache, *, kind="attn_global",
                 encoder_kv=None):
     """Single-token attention with a KV cache, updated in place.
@@ -276,8 +317,12 @@ def attn_decode(p, cfg, x, positions, cache, *, kind="attn_global",
 
     Global caches are position-indexed (slot = position); local caches are
     ring buffers (slot = position % slots) with explicit slot positions.
-    attn_cross attends over the encoder's ``encoder_kv`` = (ek, ev)
-    (B, T, K, hd) with no mask and leaves ``cache`` as it is.
+    A cache with ``k_scale`` is int8 (``kv_quant="int8"``, global layers
+    only): the new k and v are quantized into it and the step attends
+    through ``_attn_decode_quant``, as in the reference; every other
+    cache goes through the decode kernel.  attn_cross attends over the
+    encoder's ``encoder_kv`` = (ek, ev) (B, T, K, hd) with no mask and
+    leaves ``cache`` as it is.
     """
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim
@@ -299,9 +344,19 @@ def attn_decode(p, cfg, x, positions, cache, *, kind="attn_global",
     slots = cache["k"].shape[1]
     slot = positions % slots if kind == "attn_local" else positions
     window = cfg.window_size if kind == "attn_local" else None
+    cache_write(cache["pos"], positions, slot)
+    if "k_scale" in cache:  # int8 KV cache
+        (kq, ks), (vq, vs) = kv_quantize(k), kv_quantize(v)
+        cache_write(cache["k"], kq[:, 0], slot)
+        cache_write(cache["v"], vq[:, 0], slot)
+        cache_write(cache["k_scale"], ks[:, 0], slot)
+        cache_write(cache["v_scale"], vs[:, 0], slot)
+        o = _attn_decode_quant(q, cache, window=window,
+                               softcap_val=cfg.attn_softcap,
+                               q_positions=positions[:, None])
+        return dot(o.reshape(B, 1, H * hd), p["wo"]), cache
     cache_write(cache["k"], k[:, 0], slot)
     cache_write(cache["v"], v[:, 0], slot)
-    cache_write(cache["pos"], positions, slot)
     o = ops.decode_attention_op(q, cache["k"], cache["v"], positions,
                                 cache["pos"], window=window,
                                 softcap=cfg.attn_softcap)
@@ -503,3 +558,168 @@ def rglru_decode(p, cfg, x, cache):
     h = cache["h"] * a[:, 0] + gated[:, 0]  # (B, R)
     y = dot(h[:, None].to(x.dtype) * gate, p["wo"])
     return y, {"h": h, "conv": conv_state}
+
+
+# --------------------------------------------------------------------------
+# xLSTM blocks: mLSTM (matrix memory) and sLSTM (scalar memory)
+# --------------------------------------------------------------------------
+
+_MLSTM_STATE = ("C", "n", "m")
+_SLSTM_STATE = ("c", "n", "h", "m")
+_SLSTM_GATES = ("i", "f", "z", "o")
+
+
+def _xlstm_heads(cfg: ArchConfig) -> tuple[int, int]:
+    """(heads, head width) of an mLSTM / sLSTM block."""
+    nh = cfg.lru_heads or cfg.n_heads
+    return nh, cfg.d_model // nh
+
+
+def mlstm_template(cfg: ArchConfig):
+    D = cfg.d_model
+    nh, _ = _xlstm_heads(cfg)
+    return {
+        "wq": ParamSpec((D, D), ("embed", "heads")),
+        "wk": ParamSpec((D, D), ("embed", "heads")),
+        "wv": ParamSpec((D, D), ("embed", "heads")),
+        "wi": ParamSpec((D, nh), ("embed", None), scale=0.1),
+        "wf": ParamSpec((D, nh), ("embed", None), scale=0.1),
+        "bf": ParamSpec((nh,), (None,), init="ones"),
+        "wg": ParamSpec((D, D), ("embed", "heads")),  # output gate branch
+        "wo": ParamSpec((D, D), ("heads", "embed")),
+    }
+
+
+def _mlstm_gates(p, x):
+    """Input-gate and forget-gate logs (B, S, nh), fp32."""
+    x32 = x.to(f32)
+    i_log = torch.matmul(x32, p["wi"].to(f32))
+    f_log = F.logsigmoid(torch.matmul(x32, p["wf"].to(f32))
+                         + p["bf"].to(f32))
+    return i_log, f_log
+
+
+def _mlstm_proj(p, cfg, x):
+    """q, k, v and the output gate (B, S, nh, dh) fp32, and the gate
+    logs (B, S, nh)."""
+    B, S, D = x.shape
+    nh, dh = _xlstm_heads(cfg)
+    q = dot(x, p["wq"]).reshape(B, S, nh, dh).to(f32) * dh ** -0.5
+    k = dot(x, p["wk"]).reshape(B, S, nh, dh).to(f32) * dh ** -0.5
+    v = dot(x, p["wv"]).reshape(B, S, nh, dh).to(f32)
+    og = torch.sigmoid(dot(x, p["wg"]).to(f32)).reshape(B, S, nh, dh)
+    return (q, k, v, og) + _mlstm_gates(p, x)
+
+
+def _mlstm_step(state, q, k, v, og, il, fl):
+    """One stabilized mLSTM step: state (C (B,nh,dh,dh), n (B,nh,dh),
+    m (B,nh)); returns (new state, h (B, nh, dh))."""
+    C, n, m = state
+    m_new = torch.maximum(fl + m, il)
+    i_ = torch.exp(il - m_new)
+    f_ = torch.exp(fl + m - m_new)
+    C = f_[..., None, None] * C + i_[..., None, None] * (
+        v[..., :, None] * k[..., None, :])
+    n = f_[..., None] * n + i_[..., None] * k
+    num = torch.einsum("bhij,bhj->bhi", C, q)
+    den = torch.maximum(torch.einsum("bhj,bhj->bh", n, q).abs(),
+                        torch.exp(-m_new))[..., None]
+    return (C, n, m_new), og * (num / den)
+
+
+def mlstm_apply(p, cfg, x, *, make_cache=False):
+    """Stabilized mLSTM, a sequential loop over time (fp32 state).
+
+    State per head: C (dh, dh) matrix memory, n (dh,) normalizer, m scalar
+    stabilizer.  h_t = o_t * (C_t q_t / max(|n_t.q_t|, exp(-m_t))).
+    """
+    B, S, D = x.shape
+    nh, dh = _xlstm_heads(cfg)
+    proj = _mlstm_proj(p, cfg, x)
+    state = (torch.zeros((B, nh, dh, dh), dtype=f32, device=x.device),
+             torch.zeros((B, nh, dh), dtype=f32, device=x.device),
+             torch.zeros((B, nh), dtype=f32, device=x.device))
+    hs = []
+    for t in range(S):
+        state, h = _mlstm_step(state, *(a[:, t] for a in proj))
+        hs.append(h)
+    h = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
+    cache = dict(zip(_MLSTM_STATE, state)) if make_cache else None
+    return dot(h, p["wo"]), cache
+
+
+def mlstm_decode(p, cfg, x, cache):
+    """One mLSTM step.  x: (B, 1, D).  Returns (y, new state): the state
+    is replaced, not updated in place."""
+    B, _, D = x.shape
+    state, h = _mlstm_step(tuple(cache[k] for k in _MLSTM_STATE),
+                           *(a[:, 0] for a in _mlstm_proj(p, cfg, x)))
+    y = dot(h.reshape(B, 1, D).to(x.dtype), p["wo"])
+    return y, dict(zip(_MLSTM_STATE, state))
+
+
+def slstm_template(cfg: ArchConfig):
+    D = cfg.d_model
+    nh, dh = _xlstm_heads(cfg)
+    t = {}
+    for g in _SLSTM_GATES:
+        t[f"w{g}"] = ParamSpec((D, D), ("embed", "heads"))
+        t[f"r{g}"] = ParamSpec((nh, dh, dh), (None, None, None), scale=0.1)
+        t[f"b{g}"] = ParamSpec((D,), ("heads",), init="zeros")
+    t["wo_out"] = ParamSpec((D, D), ("heads", "embed"))
+    return t
+
+
+def _slstm_pre(p, cfg, x):
+    """The four gates' input parts (B, S, nh, dh) fp32 and their
+    block-diagonal recurrent weights stacked by gate (nh, 4*dh, dh)."""
+    B, S, D = x.shape
+    nh, dh = _xlstm_heads(cfg)
+    pre = [(dot(x, p[f"w{g}"]) + p[f"b{g}"]).to(f32).reshape(B, S, nh, dh)
+           for g in _SLSTM_GATES]
+    R = torch.cat([p[f"r{g}"].to(f32) for g in _SLSTM_GATES], dim=1)
+    return pre, R
+
+
+def _slstm_step(state, R, xi, xf, xz, xo):
+    """One stabilized sLSTM step: state (c, n, h, m), each (B, nh, dh)
+    (m: a per-unit stabilizer); returns the new state."""
+    c, n, h, m = state
+    ri, rf, rz, ro = torch.einsum("bhj,hij->bhi", h, R).chunk(4, dim=-1)
+    il = xi + ri
+    fl = F.logsigmoid(xf + rf)
+    m_new = torch.maximum(fl + m, il)
+    i_ = torch.exp(il - m_new)
+    f_ = torch.exp(fl + m - m_new)
+    z = torch.tanh(xz + rz)
+    o = torch.sigmoid(xo + ro)
+    c = f_ * c + i_ * z
+    n = torch.maximum(f_ * n + i_, torch.exp(-m_new))
+    return c, n, o * c / n, m_new
+
+
+def slstm_apply(p, cfg, x, *, make_cache=False):
+    """Stabilized sLSTM with block-diagonal recurrence, a sequential loop
+    over time (fp32 state)."""
+    B, S, D = x.shape
+    nh, dh = _xlstm_heads(cfg)
+    pre, R = _slstm_pre(p, cfg, x)
+    zeros = torch.zeros((B, nh, dh), dtype=f32, device=x.device)
+    state = (zeros, zeros + 1e-6, zeros, zeros)
+    hs = []
+    for t in range(S):
+        state = _slstm_step(state, R, *(a[:, t] for a in pre))
+        hs.append(state[2])
+    h = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
+    cache = dict(zip(_SLSTM_STATE, state)) if make_cache else None
+    return dot(h, p["wo_out"]), cache
+
+
+def slstm_decode(p, cfg, x, cache):
+    """One sLSTM step.  x: (B, 1, D).  Returns (y, new state)."""
+    B, _, D = x.shape
+    pre, R = _slstm_pre(p, cfg, x)
+    state = _slstm_step(tuple(cache[k] for k in _SLSTM_STATE), R,
+                        *(a[:, 0] for a in pre))
+    y = dot(state[2].reshape(B, 1, D).to(x.dtype), p["wo_out"])
+    return y, dict(zip(_SLSTM_STATE, state))

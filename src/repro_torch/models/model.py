@@ -1,8 +1,19 @@
-"""The model (PyTorch port of ``repro.models.model``), for configs whose
-decoder layers are ``attn_global``, ``attn_local`` and ``rglru``
-blocks, each with a gated MLP or, where ``cfg.moe`` is set, a
-capacity-routed MoE layer: the dense decoders, recurrentgemma, the MoE
-decoders, pixtral and whisper.
+"""The model (PyTorch port of ``repro.models.model``), for every
+architecture of the reference: decoders whose layers are
+``attn_global``, ``attn_local``, ``rglru``, ``mlstm`` and ``slstm``
+blocks, each (where ``cfg.d_ff`` > 0 or ``cfg.moe`` is set) with a
+gated MLP or a capacity-routed MoE layer: the dense decoders, gemma2
+and gemma3, recurrentgemma, xLSTM, the MoE decoders, pixtral and
+whisper.
+
+``window_pattern`` (gemma2, gemma3) maps each period position to an
+``attn_local`` (sliding window, ring-buffer cache) or ``attn_global``
+block; ``sandwich_norm`` adds ``ln1_post`` after an attention block's
+output and ``ln2_post`` after the MLP's, each before its residual add;
+``kv_quant="int8"`` keeps the global layers' k and v as int8 codes with
+fp32 per-(token, kv-head) scales (``k_scale``/``v_scale``), while local
+layers keep the model dtype.  mLSTM and sLSTM blocks carry fp32
+recurrent state (``C``/``n``/``m`` and ``c``/``n``/``h``/``m``).
 
 The two frontends are the reference's stubs.  pixtral's
 ``patch_embeds`` (B, vision_tokens, D) go through ``vision_proj`` and
@@ -49,21 +60,9 @@ from repro_torch.models.layers import ParamSpec
 
 f32 = torch.float32
 
-# config flags the port does not implement (value -> unsupported)
-_UNSUPPORTED = ("window_pattern", "kv_quant", "sandwich_norm")
-_KINDS = ("attn_global", "attn_local", "rglru")  # decoder block kinds
+# decoder block kinds
+_KINDS = ("attn_global", "attn_local", "rglru", "mlstm", "slstm")
 _STACKED = ("layers", "encoder/scan")  # template groups stacked by layer
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for a config outside the ported subset."""
-    bad = [f for f in _UNSUPPORTED if getattr(cfg, f)]
-    bad += [f"block {k!r}" for k in (cfg.block_pattern or ())
-            if k not in _KINDS]
-    if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(bad)} not ported yet (the PyTorch "
-            f"port covers decoders of {', '.join(_KINDS)} blocks)")
 
 
 # --------------------------------------------------------------------------
@@ -71,9 +70,11 @@ def check_supported(cfg: ArchConfig) -> None:
 # --------------------------------------------------------------------------
 
 def block_pattern_of(cfg: ArchConfig) -> tuple[str, ...]:
-    check_supported(cfg)
     if cfg.block_pattern:
         return tuple(cfg.block_pattern)
+    if cfg.window_pattern:
+        return tuple("attn_local" if w == "local" else "attn_global"
+                     for w in cfg.window_pattern)
     return ("attn_global",)
 
 
@@ -86,8 +87,8 @@ def layer_layout(cfg: ArchConfig) -> tuple[tuple[str, ...], int, int]:
 def _groups(cfg: ArchConfig):
     """(name, block kinds, depth) of each stacked layer group: ``scan``
     holds the whole periods; ``rem_scan`` the layers that do not fill one
-    (recurrentgemma: 26 = 8*3 + 2), stacked to depth 1 as in the
-    reference."""
+    (recurrentgemma: 26 = 8*3 + 2; gemma3: 62 = 10*6 + 2), stacked to
+    depth 1 as in the reference."""
     pat, n_per, n_rem = layer_layout(cfg)
     out = []
     if n_per > 0:
@@ -104,25 +105,31 @@ def _groups(cfg: ArchConfig):
 def block_template(cfg: ArchConfig, kind: str, *, encoder=False):
     """A decoder block of ``kind`` (with the cross sub-block where the
     config has an encoder) or, with ``encoder``, an encoder block
-    (``attn_bidir``, a gated MLP even in an MoE config)."""
+    (``attn_bidir``, a gated MLP even in an MoE config).  A block has an
+    MLP (or MoE) where ``d_ff`` > 0 or ``moe`` is set, as in the
+    reference (xLSTM has neither)."""
     if kind not in (("attn_bidir",) if encoder else _KINDS):
-        raise NotImplementedError(kind)
+        raise ValueError(kind)
     D = cfg.d_model
     norm = lambda: ParamSpec((D,), ("embed",), init="zeros")  # noqa: E731
     t: dict[str, Any] = {"ln1": norm()}
-    if kind == "rglru":
-        t["rglru"] = L.rglru_template(cfg)
-    else:
+    if kind.startswith("attn"):
         t["attn"] = L.attn_template(cfg)
+        if cfg.sandwich_norm:
+            t["ln1_post"] = norm()
+    else:  # rglru, mlstm, slstm
+        t[kind] = getattr(L, f"{kind}_template")(cfg)
     if not encoder and cfg.encoder_layers:
         t["ln_cross"] = norm()
         t["cross"] = L.attn_template(cfg)
-    if cfg.d_ff > 0:
+    if cfg.d_ff > 0 or cfg.moe is not None:
         t["ln2"] = norm()
         if cfg.moe is not None and not encoder:
             t["moe"] = L.moe_template(cfg)
         else:
             t["mlp"] = L.mlp_template(cfg)
+        if cfg.sandwich_norm:
+            t["ln2_post"] = norm()
     return t
 
 
@@ -216,23 +223,37 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 
 def _block_cache(cfg: ArchConfig, kind: str, n: int, B: int,
                  cache_len: int, device):
-    """The decode state of ``n`` stacked blocks of ``kind``."""
+    """The decode state of ``n`` stacked blocks of ``kind``: k, v and
+    slot positions of an attention block (int8 k and v with fp32 scales
+    on a global block under ``kv_quant="int8"``), fp32 recurrent state
+    of a recurrent one."""
     K, hd, dt = cfg.n_kv_heads, cfg.head_dim, cfg.tdtype
+
+    def zeros(*shape, dtype=f32):
+        return torch.zeros((n, B) + shape, dtype=dtype, device=device)
     if kind == "rglru":
         R = cfg.rglru_dim or cfg.d_model
-        return {"h": torch.zeros((n, B, R), dtype=f32, device=device),
-                "conv": torch.zeros((n, B, cfg.conv_width - 1, R),
-                                    dtype=dt, device=device)}
+        return {"h": zeros(R), "conv": zeros(cfg.conv_width - 1, R,
+                                             dtype=dt)}
+    if kind in ("mlstm", "slstm"):
+        nh, dh = L._xlstm_heads(cfg)
+        if kind == "mlstm":
+            return {"C": zeros(nh, dh, dh), "n": zeros(nh, dh),
+                    "m": zeros(nh)}
+        return {"c": zeros(nh, dh), "n": zeros(nh, dh).fill_(1e-6),
+                "h": zeros(nh, dh), "m": zeros(nh, dh)}
     S = cache_len if kind == "attn_global" else min(cfg.window_size,
                                                     cache_len)
-    c = {"k": torch.zeros((n, B, S, K, hd), dtype=dt, device=device),
-         "v": torch.zeros((n, B, S, K, hd), dtype=dt, device=device),
-         "pos": torch.full((n, B, S), -1, dtype=torch.int32,
-                           device=device)}
+    quant = cfg.kv_quant == "int8" and kind == "attn_global"
+    kv_dt = torch.int8 if quant else dt
+    c = {"k": zeros(S, K, hd, dtype=kv_dt), "v": zeros(S, K, hd, dtype=kv_dt),
+         "pos": zeros(S, dtype=torch.int32).fill_(-1)}
+    if quant:
+        c["k_scale"] = zeros(S, K)
+        c["v_scale"] = zeros(S, K)
     if cfg.encoder_layers:  # the encoder's k and v, for cross attention
         for key in ("cross_k", "cross_v"):
-            c[key] = torch.zeros((n, B, cfg.encoder_seq, K, hd), dtype=dt,
-                                 device=device)
+            c[key] = zeros(cfg.encoder_seq, K, hd, dtype=dt)
     return c
 
 
@@ -250,23 +271,27 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device="cuda"):
 def _apply_block(p, cfg, kind, x, positions, *, cache=None, decode=False,
                  make_cache=0, enc_out=None):
     """One residual block.  Returns (x, cache, aux): in decode, the
-    attention cache updated in place or the RG-LRU block's new state; in
-    prefill, the new cache when ``make_cache`` > 0 (with the encoder's k
-    and v where the block cross-attends to ``enc_out``); aux, the MoE
-    layer's router load and loss ({} without one)."""
+    attention cache updated in place or a recurrent block's new state;
+    in prefill, the new cache when ``make_cache`` > 0 (with the encoder's
+    k and v where the block cross-attends to ``enc_out``); aux, the MoE
+    layer's router load and loss ({} without one).  Under
+    ``sandwich_norm`` the attention and MLP outputs are normed
+    (``ln1_post``, ``ln2_post``) before their residual adds."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    if kind == "rglru":
+    if kind.startswith("attn"):
         if decode:
-            y, cache = L.rglru_decode(p["rglru"], cfg, h, cache)
+            y, cache = L.attn_decode(p["attn"], cfg, h, positions, cache,
+                                     kind=kind)
         else:
-            y, cache = L.rglru_apply(p["rglru"], cfg, h,
-                                     make_cache=bool(make_cache))
-    elif decode:
-        y, cache = L.attn_decode(p["attn"], cfg, h, positions, cache,
-                                 kind=kind)
+            y, cache = L.attn_apply(p["attn"], cfg, h, positions,
+                                    kind=kind, make_cache=make_cache)
+        if cfg.sandwich_norm:
+            y = L.rms_norm(y, p["ln1_post"], cfg.norm_eps)
+    elif decode:  # rglru, mlstm, slstm: the new state replaces the old
+        y, cache = getattr(L, f"{kind}_decode")(p[kind], cfg, h, cache)
     else:
-        y, cache = L.attn_apply(p["attn"], cfg, h, positions, kind=kind,
-                                make_cache=make_cache)
+        y, cache = getattr(L, f"{kind}_apply")(p[kind], cfg, h,
+                                               make_cache=bool(make_cache))
     x = x + y
     if "cross" in p:
         h = L.rms_norm(x, p["ln_cross"], cfg.norm_eps)
@@ -294,6 +319,8 @@ def _apply_block(p, cfg, kind, x, positions, *, cache=None, decode=False,
             y, aux = L.moe_apply(p["moe"], cfg, h)
         else:
             y = L.mlp_apply(p["mlp"], h)
+        if cfg.sandwich_norm:
+            y = L.rms_norm(y, p["ln2_post"], cfg.norm_eps)
         x = x + y
     return x, cache, aux
 
@@ -311,7 +338,7 @@ def _run_layers(cfg, params_l, x, positions, *, caches=None, decode=False,
     """Drive the stacked layer groups (``scan``, then ``rem_scan``): a
     loop over each group's stacked index.
 
-    Decode updates ``caches`` in place (an RG-LRU block's new state is
+    Decode updates ``caches`` in place (a recurrent block's new state is
     copied into its stacked slice; the cross-attention k and v, which a
     decode step only reads, are never copied, so
     ``cfg.decode_skip_static_writes`` has nothing left to switch and is
@@ -486,7 +513,7 @@ def decode_step(cfg: ArchConfig, params, token, pos, caches):
 
     Returns (logits (B, V), caches) with ``caches`` updated in place.
     A position must have a slot in every global cache; local caches are
-    ring buffers and RG-LRU state has no slots, so they take any
+    ring buffers and recurrent state has no slots, so they take any
     position >= 0.
     """
     slots = [caches[g][f"pos{i}"]["k"].shape[2]

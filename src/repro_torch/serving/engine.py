@@ -1,6 +1,6 @@
 """Serverless serving engine with SLIMSTART-guided cold starts (PyTorch
-port of ``repro.serving.engine.ServingEngine``: dense, recurrent and MoE
-decoders, pixtral and whisper).
+port of ``repro.serving.engine.ServingEngine``, for every architecture
+of the reference).
 
 Cold-start anatomy (the Level-B "library loading"):
     import -> config -> weight materialization -> entry-point warm-up
@@ -63,8 +63,7 @@ import torch
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import (
-    _head, check_supported, decode_step, forward, init_cache, init_params,
-    prefill,
+    _head, decode_step, forward, init_cache, init_params, prefill,
 )
 from repro_torch.obs.tracing import get_tracer
 from repro_torch.serving.components import (
@@ -105,7 +104,6 @@ class ServingEngine:
                  = None, seed: int = 0, batch_size: int = 1,
                  prefill_len: int = 32, max_len: int = 96,
                  device: str = "cuda"):
-        check_supported(cfg)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServingEngine: CUDA is not available; pass "

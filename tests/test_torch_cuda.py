@@ -82,6 +82,14 @@ def _rand(rng, shape, dtype, device):
     (4, 20, 20, 224, 1500, 64, False, None, None, "bhsd"),
     (2, 4, 4, 150, 70, 64, False, None, None, "bhsd"),
     (4, 32, 8, 768, 768, 128, True, None, None, "model"),
+    # gemma2: hd 256, G 2, softcap 50 with and without a window (the
+    # window's edge straddling 64-key tiles); gemma3: hd 128, G 2, a
+    # window; both at a window of 1024 over 1100 keys
+    (1, 4, 2, 200, 200, 256, True, 48, 50.0, "bhsd"),
+    (2, 4, 2, 130, 130, 256, True, None, 50.0, "model"),
+    (1, 4, 2, 1100, 1100, 256, True, 1024, 50.0, "model"),
+    (2, 4, 2, 300, 300, 128, True, 64, None, "model"),
+    (1, 4, 2, 1100, 1100, 128, True, 1024, None, "model"),
 ])
 def test_flash_kernel_matches_plain(cuda, B, H, K, Sq, Skv, hd, causal,
                                     window, cap, layout, dtype):
@@ -184,6 +192,16 @@ def test_decode_kernel_rejects_misaligned_rows(cuda, which, dtype, hd):
     (2, 2, 2, 77, 64, None, None, False),
     # whisper's self decode: hd 64, G 1 over its 448-slot cache
     (4, 20, 1, 448, 64, None, None, False),
+    # gemma2: hd 256, G 2, softcap 50 over a wrapped ring with its window
+    # and over a position-indexed cache, small and at its 4096-slot ring
+    # and 4624-slot global cache; gemma3: hd 128, G 2, a wrapped ring,
+    # small and at its 1024-slot ring
+    (2, 2, 2, 150, 256, 64, 50.0, True),
+    (2, 2, 2, 333, 256, None, 50.0, False),
+    (4, 8, 2, 4096, 256, 4096, 50.0, True),
+    (4, 8, 2, 4624, 256, None, 50.0, False),
+    (2, 2, 2, 150, 128, 64, None, True),
+    (4, 16, 2, 1024, 128, 1024, None, True),
 ])
 def test_decode_kernel_matches_plain(cuda, B, K, G, S, hd, window, cap,
                                      ring, dtype):
@@ -365,18 +383,29 @@ def test_rglru_kernel_unaligned_start(cuda, dtype):
                                **TOL[dtype])
 
 
-@pytest.mark.parametrize("arch,n_dec", [("granite-8b", 5),
-                                        ("recurrentgemma-2b", 20),
-                                        ("granite-moe-1b-a400m", 5),
-                                        ("olmoe-1b-7b", 5),
-                                        ("whisper-large-v3", 5),
-                                        ("pixtral-12b", 5)])
-def test_reduced_model_cuda_matches_cpu(cuda, arch, n_dec):
-    """recurrentgemma decodes past its window of 16, so the ring wraps;
-    whisper runs its encoder over random frames and decodes through the
-    cross-attention cache, pixtral prefills behind random patch
-    embeddings."""
-    cfg = get_reduced(arch)
+# the int8 KV cache on gemma2-9b, beside its bf16 one
+INT8 = pytest.param("gemma2-9b", 20, {"kv_quant": "int8"},
+                    id="gemma2-9b-int8")
+
+
+@pytest.mark.parametrize("arch,n_dec,cfg_kw", [("granite-8b", 5, {}),
+                                               ("recurrentgemma-2b", 20, {}),
+                                               ("granite-moe-1b-a400m", 5,
+                                                {}),
+                                               ("olmoe-1b-7b", 5, {}),
+                                               ("whisper-large-v3", 5, {}),
+                                               ("pixtral-12b", 5, {}),
+                                               ("gemma2-9b", 20, {}),
+                                               ("gemma3-27b", 20, {}),
+                                               ("xlstm-350m", 5, {}), INT8])
+def test_reduced_model_cuda_matches_cpu(cuda, arch, n_dec, cfg_kw):
+    """recurrentgemma, gemma2 and gemma3 decode past their window of 16,
+    so the ring wraps; whisper runs its encoder over random frames and
+    decodes through the cross-attention cache, pixtral prefills behind
+    random patch embeddings; xlstm runs its mLSTM / sLSTM loops on the
+    card; the int8 KV cache's codes may differ by one step where a value
+    lies on a rounding boundary."""
+    cfg = get_reduced(arch).with_(**cfg_kw)
     params = M.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
 
     def to(tree):
@@ -418,6 +447,11 @@ def test_reduced_model_cuda_matches_cpu(cuda, arch, n_dec):
                 yield f"{prefix}{k}", tree[k]
     want = dict(leaves(cc))
     for name, got in leaves(cg):
+        if got.dtype == torch.int8:
+            assert want[name].dtype == torch.int8, name
+            diff = got.cpu().int() - want[name].int()
+            assert diff.abs().max().item() <= 1, name
+            continue
         torch.testing.assert_close(got.cpu(), want[name], rtol=2e-3,
                                    atol=2e-3, msg=lambda m: f"{name}: {m}")
 
@@ -458,31 +492,39 @@ def _kernel_counters():
 
 def _per_step(cfg):
     """Kernel launches of one decode step: decode once per attention and
-    cross-attention layer."""
+    cross-attention layer, but for the global layers of an int8 KV cache
+    (plain PyTorch); none for mLSTM / sLSTM blocks."""
     pat, n_per, n_rem = M.layer_layout(cfg)
     kinds = list(pat) * n_per + list(pat[:n_rem])
     n_attn = sum(k.startswith("attn") for k in kinds)
+    if cfg.kv_quant == "int8":
+        n_attn -= kinds.count("attn_global")
     n_cross = len(kinds) if cfg.encoder_layers else 0
     return {"flash_attention": 0, "decode_attention": n_attn + n_cross,
             "rglru_scan": 0}
 
 
-@pytest.mark.parametrize("arch,n_dec", [("granite-8b", 6),
-                                        ("qwen2.5-32b", 6),
-                                        ("recurrentgemma-2b", 20),
-                                        ("granite-moe-1b-a400m", 6),
-                                        ("olmoe-1b-7b", 6),
-                                        ("whisper-large-v3", 6),
-                                        ("pixtral-12b", 6)])
-def test_decode_graph_matches_eager_step(cuda, arch, n_dec):
+@pytest.mark.parametrize("arch,n_dec,cfg_kw", [("granite-8b", 6, {}),
+                                               ("qwen2.5-32b", 6, {}),
+                                               ("recurrentgemma-2b", 20, {}),
+                                               ("granite-moe-1b-a400m", 6,
+                                                {}),
+                                               ("olmoe-1b-7b", 6, {}),
+                                               ("whisper-large-v3", 6, {}),
+                                               ("pixtral-12b", 6, {}),
+                                               ("gemma2-9b", 20, {}),
+                                               ("gemma3-27b", 20, {}),
+                                               ("xlstm-350m", 6, {}), INT8])
+def test_decode_graph_matches_eager_step(cuda, arch, n_dec, cfg_kw):
     """The captured decode step, replayed over a prefill written into its
     static caches, against the eager step on a copy of the same caches:
     logits within 2e-3 and the same greedy tokens at every step
-    (recurrentgemma past its window of 16, so the ring wraps); each
-    replay adds its captured launches to the counters, the capture adds
-    none."""
+    (recurrentgemma, gemma2 and gemma3 past their window of 16, so the
+    ring wraps; xlstm's recurrent state and the int8 cache's codes and
+    scales updated in place); each replay adds its captured launches to
+    the counters, the capture adds none."""
     from repro_torch.serving.graphs import DecodeGraph
-    cfg = get_reduced(arch)
+    cfg = get_reduced(arch).with_(**cfg_kw)
     params = M.init_params(cfg, torch.Generator(cuda).manual_seed(1), cuda)
     B, T0, vt = 2, 8, cfg.vision_tokens
     cache_len = vt + T0 + n_dec

@@ -41,7 +41,10 @@ ARCHS = ["granite-8b", "qwen2.5-32b",  # qwen: qkv bias, untied head
          "granite-moe-1b-a400m",  # MoE, tied head
          "olmoe-1b-7b",  # MoE with qk_norm, untied head
          "whisper-large-v3",  # encoder, cross attention, learned positions
-         "pixtral-12b"]  # vision prefix through vision_proj
+         "pixtral-12b",  # vision prefix through vision_proj
+         "gemma2-9b",  # local/global pattern, softcaps, sandwich norms
+         "gemma3-27b",  # 5:1 local/global, qk_norm, rem_scan group
+         "xlstm-350m"]  # mLSTM / sLSTM blocks, no MLP
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -330,16 +333,24 @@ def test_vision_prefix_fills_the_first_positions():
     assert np.abs(_np(text_only) - _np(tl)).max() > 1e-3
 
 
-@pytest.mark.parametrize("T0", [4, 20])  # 20 > window: the rolled ring
-def test_decode_past_local_window_matches_reference(T0):
-    """recurrentgemma's ring-buffer local cache stays right after the
-    decode wraps the window (tests/test_archs.py, run against the port):
-    every decode step's logits against the reference's, and the last
+# T0 20 > the reduced window of 16: the prefill rolls the ring; the ids
+# of recurrentgemma's cases are their prompt lengths alone
+@pytest.mark.parametrize("arch,T0", [
+    pytest.param(arch, T0, id=str(T0) if arch == "recurrentgemma-2b"
+                 else f"{arch}-{T0}")
+    for arch in ("recurrentgemma-2b", "gemma2-9b", "gemma3-27b")
+    for T0 in (4, 20)])
+def test_decode_past_local_window_matches_reference(arch, T0):
+    """The ring-buffer local cache stays right after the decode wraps the
+    window (tests/test_archs.py, run against the port): recurrentgemma's
+    local layers, gemma2's alternating local/global ones (softcaps,
+    sandwich norms) and gemma3's 5:1 pattern with its remainder layers.
+    Every decode step's logits against the reference's, and the last
     against the reference's teacher-forced forward, at its 5e-3."""
-    arch = "recurrentgemma-2b"
     jcfg, tcfg = j_reduced(arch), t_reduced(arch)
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(1))
     tparams = from_numpy_tree(jax.tree.map(np.asarray, jparams), "cpu")
+    local = f"pos{TM.block_pattern_of(tcfg).index('attn_local')}"
     B = 2
     total = jcfg.window_size + 12  # force wraparound
     toks = np.random.default_rng(2).integers(
@@ -351,9 +362,9 @@ def test_decode_past_local_window_matches_reference(T0):
                           cache_len=total)
     _, tc, _ = TM.prefill(tcfg, tparams, torch.from_numpy(toks[:, :T0]),
                           cache_len=total)
-    assert tc["scan"]["pos2"]["k"].shape[2] == jcfg.window_size
-    np.testing.assert_array_equal(_np(tc["scan"]["pos2"]["pos"]),
-                                  np.asarray(jc["scan"]["pos2"]["pos"]))
+    assert tc["scan"][local]["k"].shape[2] == jcfg.window_size
+    np.testing.assert_array_equal(_np(tc["scan"][local]["pos"]),
+                                  np.asarray(jc["scan"][local]["pos"]))
     dec = jax.jit(lambda p, t, pos, c: JM.decode_step(jcfg, p, t, pos, c))
     for i in range(T0, total):
         pos = np.full((B,), i, np.int32)
@@ -364,8 +375,8 @@ def test_decode_past_local_window_matches_reference(T0):
         np.testing.assert_allclose(_np(tl), _np(jl), rtol=5e-3, atol=5e-3,
                                    err_msg=f"decode position {i}")
     np.testing.assert_allclose(_np(tl), full[:, -1], rtol=5e-3, atol=5e-3)
-    np.testing.assert_array_equal(_np(tc["scan"]["pos2"]["pos"]),
-                                  np.asarray(jc["scan"]["pos2"]["pos"]))
+    np.testing.assert_array_equal(_np(tc["scan"][local]["pos"]),
+                                  np.asarray(jc["scan"][local]["pos"]))
 
 
 def test_rglru_primitives_match_reference():
@@ -537,12 +548,6 @@ def test_bf16_head_gives_fp32_logits():
     assert TM._head(tcfg, params, h).dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-27b", "xlstm-350m"])
-def test_unported_configs_raise(arch):
-    with pytest.raises(NotImplementedError):
-        TM.model_template(t_reduced(arch))
-
-
 def test_expert_init_keyed_stably_across_processes():
     """The engine's per-expert draws depend on (seed, expert, layer path,
     leaf) only: the same in a process with another hash seed, where the
@@ -573,3 +578,98 @@ def test_expert_init_keyed_stably_across_processes():
     assert sums[0] == sums[1]
     per_expert = eval(sums[0])
     assert len(set(per_expert)) == len(per_expert)  # a draw per leaf
+
+
+# ------------------------------------------------------------ int8 KV cache
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "gemma2-9b"])
+def test_int8_kv_decode_greedy_equivalent(arch):
+    """tests/test_perf_features.py's int8 test, run on the port: decode
+    over the int8 KV cache keeps greedy decoding equivalent to the
+    teacher-forced forward (argmax agreement) with logits within the
+    reference's quantization bound (0.25 of their scale); and every step
+    against the reference's own int8 decode, at 2e-3, with each cache's
+    int8 codes within one step of the reference's (a value on a rounding
+    boundary may land either side) and its scales at 2e-3."""
+    jcfg = j_reduced(arch).with_(kv_quant="int8")
+    tcfg = t_reduced(arch).with_(kv_quant="int8")
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(1))
+    tparams = from_numpy_tree(jax.tree.map(np.asarray, jparams), "cpu")
+    B, T0, n_dec = 2, 8, 4
+    tokens = np.array(jax.random.randint(
+        jax.random.PRNGKey(2), (B, T0 + n_dec), 0, jcfg.vocab, jnp.int32))
+    h, _, _ = TM.forward(tcfg, tparams, torch.from_numpy(tokens))
+    full = _np(TM._head(tcfg, tparams, h))
+    _, jc, _ = JM.prefill(jcfg, jparams, jnp.asarray(tokens[:, :T0]),
+                          cache_len=T0 + n_dec)
+    _, tc, _ = TM.prefill(tcfg, tparams, torch.from_numpy(tokens[:, :T0]),
+                          cache_len=T0 + n_dec)
+    for i in range(n_dec):
+        pos = np.full((B,), T0 + i, np.int32)
+        tok = tokens[:, T0 + i:T0 + i + 1]
+        jl, jc = JM.decode_step(jcfg, jparams, jnp.asarray(tok),
+                                jnp.asarray(pos), jc)
+        tl, tc = TM.decode_step(tcfg, tparams, torch.from_numpy(tok),
+                                torch.from_numpy(pos), tc)
+        got, ref = _np(tl), full[:, T0 + i]
+        assert (got.argmax(-1) == ref.argmax(-1)).all(), \
+            f"{arch}: greedy divergence at step {i}"
+        assert np.abs(got - ref).max() / np.abs(ref).max() < 0.25
+        np.testing.assert_allclose(got, _np(jl), **TOL,
+                                   err_msg=f"{arch}: int8 decode step {i}")
+    jcn = dict(_leaves(jax.tree.map(np.asarray, jc)))
+    for name, leaf in _leaves(tc):
+        if leaf.dtype == torch.int8:
+            assert jcn[name].dtype == np.int8, name
+            diff = np.abs(leaf.numpy().astype(np.int32)
+                          - jcn[name].astype(np.int32))
+            assert diff.max() <= 1, name
+        else:
+            np.testing.assert_allclose(_np(leaf), jcn[name], **TOL,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "gemma2-9b"])
+def test_int8_cache_dtype(arch):
+    """tests/test_perf_features.py's dtype test, on the port and against
+    the reference's tree: global layers hold int8 k and v with fp32
+    ``k_scale``/``v_scale`` (B, S, K); local layers keep the model
+    dtype."""
+    jcfg = j_reduced(arch).with_(kv_quant="int8")
+    tcfg = t_reduced(arch).with_(kv_quant="int8")
+    want = {n: np.asarray(v) for n, v in _leaves(
+        jax.tree.map(np.asarray, JM.init_cache(jcfg, 2, 16)))}
+    got = dict(_leaves(TM.init_cache(tcfg, 2, 16, "cpu")))
+    assert got.keys() == want.keys()
+    for name, leaf in got.items():
+        assert tuple(leaf.shape) == want[name].shape, name
+        assert str(leaf.dtype).split(".")[-1] == want[name].dtype.name, name
+    pattern = TM.block_pattern_of(tcfg)
+    for i, kind in enumerate(pattern):
+        blk = TM.init_cache(tcfg, 2, 16, "cpu")["scan"][f"pos{i}"]
+        quant = kind == "attn_global"
+        assert (blk["k"].dtype == torch.int8) == quant, kind
+        assert ("k_scale" in blk) == quant, kind
+        if quant:
+            assert blk["k_scale"].dtype == torch.float32
+            assert tuple(blk["k_scale"].shape) == tuple(blk["k"].shape[:-1])
+
+
+def test_kv_quantize_matches_reference():
+    """Per (token, kv-head) codes and scales, rounding half to even as
+    jnp.round, an all-zero row (scale floored at 1e-8) and values that
+    land exactly on .5 steps."""
+    rng = np.random.default_rng(21)
+    t = rng.standard_normal((2, 5, 3, 16)).astype(np.float32) * 4
+    t[0, 0, 0] = 0.0
+    # scale 254 / 127 = 2 exactly; the other values / 2 are -6.5 .. 7.5
+    t[1, 2, 1] = 2 * (np.arange(16, dtype=np.float32) - 7.5)
+    t[1, 2, 1, 0] = 254.0
+    jq, js = JL.kv_quantize(jnp.asarray(t))
+    tq, ts = TL.kv_quantize(torch.from_numpy(t))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=0)
+    assert ts[0, 0, 0].item() == pytest.approx(1e-8)
+    assert ts[1, 2, 1].item() == 2.0
+    assert tq[1, 2, 1, 1:].tolist() == [-6, -6, -4, -4, -2, -2, 0, 0, 2, 2,
+                                        4, 4, 6, 6, 8]

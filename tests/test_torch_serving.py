@@ -1,6 +1,7 @@
 """PyTorch port: ServingEngine against ``repro.serving.ServingEngine``
 on reduced configs (dense granite-8b, hybrid recurrentgemma-2b, MoE
-granite-moe-1b-a400m, whisper-large-v3 and pixtral-12b), on the CPU
+granite-moe-1b-a400m, whisper-large-v3, pixtral-12b, gemma2-9b (also
+with the int8 KV cache), gemma3-27b and xlstm-350m), on the CPU
 (device="cpu").  whisper's ``transcribe`` and pixtral's
 ``vision_generate`` get random extras, drawn with numpy from a seed.
 
@@ -30,7 +31,7 @@ import numpy as np  # noqa: E402
 from repro.configs import get_reduced as j_reduced  # noqa: E402
 from repro.serving import LoadPolicy as JPolicy  # noqa: E402
 from repro.serving import ServingEngine as JEngine  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.configs import get_reduced as t_reduced  # noqa: E402
 from repro_torch.models.convert import from_numpy_tree  # noqa: E402
 from repro_torch.serving import ServingEngine, LoadPolicy  # noqa: E402
@@ -63,12 +64,12 @@ def test_lazy_compile_materializes_on_first_use():
     assert not eng.registry["compile.score"].ready
 
 
-@pytest.fixture(scope="module", params=["granite-8b", "recurrentgemma-2b",
-                                        "whisper-large-v3", "pixtral-12b"])
-def engines(request):
-    """The reference engine and the port's, on the reference's weights
-    (carried over by swapping the port's weights.core builder)."""
-    jcfg, tcfg = j_reduced(request.param), t_reduced(request.param)
+def _engine_pair(arch, **cfg_kw):
+    """The reference engine and the port's on the reduced ``arch`` (with
+    ``cfg_kw`` changes), on the reference's weights (carried over by
+    swapping the port's weights.core builder)."""
+    jcfg = j_reduced(arch).with_(**cfg_kw)
+    tcfg = t_reduced(arch).with_(**cfg_kw)
     kw = dict(batch_size=2, prefill_len=8, max_len=24)
     jeng = JEngine(jcfg, **kw)
     jeng.cold_start()
@@ -78,6 +79,14 @@ def engines(request):
         lambda: from_numpy_tree(np_params, "cpu")
     teng.cold_start()
     return jeng, teng
+
+
+@pytest.fixture(scope="module", params=["granite-8b", "recurrentgemma-2b",
+                                        "whisper-large-v3", "pixtral-12b",
+                                        "gemma2-9b", "gemma3-27b",
+                                        "xlstm-350m"])
+def engines(request):
+    return _engine_pair(request.param)
 
 
 def test_generate_gives_reference_tokens(engines):
@@ -173,10 +182,27 @@ def test_engine_without_cuda_raises(monkeypatch):
         ServingEngine(t_reduced("granite-8b"))
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-27b", "xlstm-350m"])
-def test_engine_rejects_unported_config(arch):
-    with pytest.raises(NotImplementedError):
-        ServingEngine(t_reduced(arch), device="cpu")
+def test_int8_engine_gives_reference_tokens():
+    """gemma2-9b with the int8 KV cache (its global layers'): 16 greedy
+    tokens past the reduced window of 16 against the reference engine's."""
+    jeng, teng = _engine_pair("gemma2-9b", kv_quant="int8")
+    toks = np.random.default_rng(4).integers(0, jeng.cfg.vocab, (2, 8))
+    want, _ = jeng.serve("generate", toks, max_new_tokens=16)
+    got, _ = teng.serve("generate", toks, max_new_tokens=16)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_config_builds_an_engine(arch):
+    """Every configuration of the port, at full width, builds a
+    ServingEngine with the reference's entries (nothing is materialized
+    before the cold start)."""
+    eng = ServingEngine(get_config(arch), device="cpu")
+    want = ["generate"] + (["vision_generate"] if eng.cfg.vision_tokens
+                           else []) \
+        + (["transcribe"] if eng.cfg.encoder_layers else []) + ["score"]
+    assert eng.entries() == want
+    assert not any(c.ready for c in eng.registry.values())
 
 
 def test_lazy_policy_defers_and_first_use_pays():
