@@ -59,6 +59,26 @@ Phases, each raising on failure (the script then exits non-zero):
               encoder's output, and decode steps (recurrentgemma's,
               gemma2's and gemma3's run past their window of 16, so the
               ring wraps), 2e-3;
+4b. grad   -- reduced granite-8b, recurrentgemma-2b (the RG-LRU
+              backward), granite-moe-1b-a400m, whisper-large-v3 (non-
+              causal and cross-attention gradients into the encoder) and
+              gemma2-9b (window and softcap in the backward) in fp32,
+              remat per block, B 2 x S 512 with loss_chunk 512 (so the
+              chunked, checkpointed cross-entropy runs): one
+              ``make_train_step`` on the card (the kernels' forwards, the
+              autograd Functions' backwards) against the same step on
+              the CPU from the same params and batch -- the loss and
+              metrics and every gradient leaf within 2e-4 of the leaf's
+              largest magnitude plus 2e-5 (1e-2 and 1e-3 on
+              recurrentgemma and whisper, whose fp32 gradients sit on a
+              measured noise floor, tests/test_torch_grads.py); launches
+              exact (flash once per attention layer forward and once in
+              the recompute, rglru_scan forward, recomputed and
+              backward); one checkpoint round trip of the card's (params,
+              AdamW state), bit for bit; then at granite-8b's training
+              attention shape (B 1, H 32, K 8, S 4096, hd 128, causal,
+              bf16) flash_attention_fn's grads against autograd through
+              the plain version, 3e-2;
 5. serve   -- the main paths, one after the other, each engine freed
               before the next: ServingEngine for full-width granite-8b
               (36 layers, d_model 4096), recurrentgemma-2b (26 layers,
@@ -111,6 +131,20 @@ Phases, each raising on failure (the script then exits non-zero):
               640, 12 requests of 64-512 prompt and 4-16 new tokens),
               graphed decode against eager decode: identical tokens, exact
               launches, steps and latencies;
+5e. train  -- full-width granite-8b cut to 8 of its 36 layers (weights,
+              bf16 grads, fp32 masters and two fp32 moments are 16 B a
+              parameter: 36 layers would need ~128 GB), bf16, remat per
+              block, batch 4 x 4096 from the port's synthetic pipeline:
+              first flash at that attention shape against its plain
+              version, timed beside SDPA, and the plain attention
+              backward's time; then 6 steps of ``make_train_step`` (lr
+              1e-3) on one repeated batch -- loss and grad norm finite,
+              the loss falling, flash exactly 16 launches a step -- then
+              2 steps with accum_steps 2 and 2 with simulate_int8; for
+              information step time, tokens/s, peak memory, MFU against
+              the dense bf16 peak, and one profiled step's device time by
+              kind (matmul, flash, the plain attention backward,
+              elementwise, optimizer);
 6. breakdown -- for information, after each path: prefill and
               decode-step times with the decode graph (the prefill into
               its static caches) and with the eager step, each request's
@@ -920,6 +954,159 @@ def _close(got, want, what):
     torch.testing.assert_close(got, want, **MODEL_TOL,
                                msg=lambda m: f"parity {what}: {m}")
     return err
+
+
+# -------------------------------------------------------------- phase 4b
+# gradient tolerance, CUDA against CPU: a leaf within GRAD_RTOL of its
+# largest magnitude plus GRAD_ATOL (tests/test_training.py's); the two
+# reduced configs whose fp32 gradients sit on a measured noise floor get
+# the wider bounds of tests/test_torch_grads.py, for the reasons stated
+# there (recurrentgemma's saturated RG-LRU gates, whisper's encoder
+# gradients through cross attention)
+GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-5
+GRAD_RTOL_ARCH = {"recurrentgemma-2b": 1e-2, "whisper-large-v3": 1e-3}
+# phase 4b: B x S of the reduced batch; loss_chunk 512 at B 2 gives
+# sequence chunks of 256, so the chunked, checkpointed CE runs
+GRAD_B, GRAD_S, GRAD_LOSS_CHUNK = 2, 512, 512
+
+
+def _train_launches(cfg):
+    """Kernel launches of one train step (one microbatch) under
+    ``cfg.remat``: flash once per attention, cross-attention and encoder
+    layer in the forward and once more in the remat recompute;
+    rglru_scan once forward, once recomputed and once in the backward
+    (the reverse-time scan) per RG-LRU layer; no decode."""
+    per = _per_call(cfg)
+    fwd = 2 if cfg.remat == "block" else 1
+    return {"flash_attention": per["flash_attention"] * fwd,
+            "decode_attention": 0,
+            "rglru_scan": per["rglru_scan"] * (fwd + 1)}
+
+
+def _train_batch(cfg, B, S, seed):
+    """tokens and labels (-1 at one place), with random frames on an
+    audio config, as numpy."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    batch["labels"][0, 5] = -1
+    batch.update(_random_extras(cfg, B, rng))
+    return batch
+
+
+def _grad_step(cfg, params, batch):
+    """One make_train_step on ``params``' device: (metrics, the grads
+    the step handed to AdamW, the updated params, the AdamW state)."""
+    import torch
+    from repro_torch.training.adamw import adamw_init
+    from repro_torch.training.step import make_train_step
+    seen = []
+
+    def keep(grads):
+        seen.append(grads)
+        return grads
+    step = make_train_step(cfg, lr=1e-3, compress_fn=keep)
+    dev = next(iter(_leaves(params)))[1].device
+    opt = adamw_init(params)
+    params, opt, metrics = step(params, opt, {
+        k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+    return metrics, seen[0], params, opt
+
+
+def phase_grad_parity(arch):
+    """The reduced config in fp32 with ``remat == "block"``, one train
+    step on the card (kernel forwards, the autograd Functions'
+    backwards) against the same step on the CPU (plain versions) from
+    the same params and batch: the loss and metrics, every gradient leaf
+    (tolerance above), the launches, and one checkpoint round trip of
+    the card's (params, AdamW state), bit for bit."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as M
+    from repro_torch.training.checkpoint import (restore_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.training.tree import tree_leaves, tree_map
+    cfg = get_reduced(arch).with_(loss_chunk=GRAD_LOSS_CHUNK)
+    assert cfg.remat == "block"
+    params = M.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    params_gpu = tree_map(lambda t: t.cuda(), params)
+    batch = _train_batch(cfg, GRAD_B, GRAD_S, 4)
+    mc, grads_cpu, _, _ = _grad_step(cfg, params, batch)
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    mg, gg, params_gpu, opt_gpu = _grad_step(cfg, params_gpu, batch)
+    torch.cuda.synchronize()
+    got = {name: fn.launches for name, fn in counters.items()}
+    want = _train_launches(cfg)
+    if got != want:
+        raise RuntimeError(f"grad parity {arch}: launches {got}, want "
+                           f"{want}")
+    if mg.keys() != mc.keys():
+        raise RuntimeError(f"grad parity {arch}: metrics {sorted(mg)} != "
+                           f"{sorted(mc)}")
+    rtol = GRAD_RTOL_ARCH.get(arch, GRAD_RTOL)
+    worst = 0.0
+    for what, g_tree, c_tree in (("metric", mg, mc),
+                                 ("grad", gg, grads_cpu)):
+        g_leaves = dict(_leaves(g_tree))
+        for name, c in _leaves(c_tree):
+            g = g_leaves[name].float().cpu()
+            c = c.float()
+            err = (g - c).abs().max().item()
+            bound = rtol * c.abs().max().item() + GRAD_ATOL
+            worst = max(worst, err / bound)
+            if not err <= bound:
+                raise RuntimeError(f"grad parity {arch}: {what} {name} max "
+                                   f"err {err:.3e} > {bound:.3e}")
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as d:
+        save_checkpoint(d, 1, (params_gpu, opt_gpu))
+        back, _ = restore_checkpoint(d, 1, tree_map(torch.empty_like,
+                                                    (params_gpu, opt_gpu)))
+    for a, b in zip(tree_leaves((params_gpu, opt_gpu)), tree_leaves(back)):
+        if a.device != b.device or a.dtype != b.dtype or \
+                not torch.equal(a, b):
+            raise RuntimeError(f"grad parity {arch}: checkpoint round trip "
+                               "changed a leaf")
+    log(f"[grad] {arch} reduced fp32 B {GRAD_B} S {GRAD_S} loss_chunk "
+        f"{GRAD_LOSS_CHUNK} remat block: loss cuda {float(mg['loss']):.6f} "
+        f"cpu {float(mc['loss']):.6f}; {len(list(_leaves(grads_cpu)))} grad "
+        f"leaves, worst err / bound {worst:.3f} (rtol {rtol:g}, atol "
+        f"{GRAD_ATOL:g}); launches {got} ok; checkpoint of "
+        f"{len(tree_leaves((params_gpu, opt_gpu)))} CUDA leaves restored "
+        f"bit for bit")
+
+
+def phase_flash_grad(B=1, H=32, K=8, S=4096, hd=128, chunk=1024):
+    """granite-8b's training attention in bf16: flash_attention_fn's
+    grads (kernel forward, the plain chunked backward) against autograd
+    through flash_attention_plain, 3e-2."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_fn, flash_attention_plain)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = _rand(gen, (B, H, S, hd), torch.bfloat16)
+    k = _rand(gen, (B, K, S, hd), torch.bfloat16)
+    v = _rand(gen, (B, K, S, hd), torch.bfloat16)
+    do = _rand(gen, (B, H, S, hd), torch.bfloat16)
+    n0 = flash_attention.launches
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention_fn(*ins, chunk=chunk), ins, do)
+    flash_attention.launches = n0
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_plain(*ins), ins, do)
+    errs = []
+    for name, a, b in zip("qkv", got, want):
+        errs.append((a.float() - b.float()).abs().max().item())
+        torch.testing.assert_close(a.float(), b.float(), rtol=3e-2,
+                                   atol=3e-2,
+                                   msg=lambda m: f"flash grad d{name}: {m}")
+    log(f"[grad] flash_attention_fn bf16 B {B} H {H} K {K} S {S} hd {hd} "
+        f"causal, backward chunk {chunk}: dq/dk/dv max abs err "
+        f"{', '.join(f'{e:.3e}' for e in errs)} against autograd through "
+        f"the plain version (3e-2) ok")
 
 
 # --------------------------------------------------------------- phase 5
@@ -1744,6 +1931,253 @@ def phase_batcher():
     torch.cuda.empty_cache()
 
 
+# -------------------------------------------------------------- phase 5e
+# full-width granite-8b, depth cut to 8 of its 36 layers: bf16 weights
+# and grads, fp32 masters and two fp32 moments are 16 B a parameter, so
+# 36 layers (8.0 B parameters) would need ~128 GB; 8 layers (1.95 B)
+# need ~31 GB beside the activations of batch 4 x 4096
+TRAIN = dict(arch="granite-8b", layers=8, batch=4, seq=4096, steps=6,
+             lr=1e-3)
+
+
+def _train_cfg():
+    from repro_torch.configs import get_config
+    return get_config(TRAIN["arch"]).with_(n_layers=TRAIN["layers"])
+
+
+def _model_flops(cfg, B, S):
+    """Model FLOPs of one train step (forward and backward, remat's
+    recompute not counted): 6 x (parameters in matmuls, the tied head
+    included) x tokens, plus attention's 3 x 4 x B x H x (causal pairs)
+    x hd."""
+    from repro_torch.models import model as M
+    matmul_params = M.param_count(cfg) - cfg.n_layers * 2 * cfg.d_model \
+        - cfg.d_model  # the norms' scales
+    pairs = S * (S + 1) // 2
+    attn = 3 * 4 * B * cfg.n_heads * pairs * cfg.head_dim * cfg.n_layers
+    return 6 * matmul_params * B * S + attn
+
+
+def phase_train_kernels():
+    """At the training attention shape (bf16, causal, the chunk of the
+    backward above attn_chunk_threshold): the flash kernel against its
+    plain version, timed beside SDPA, and the plain backward's time.
+    Returns the kernel entry (launches filled by phase_train)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_plain)
+    cfg = _train_cfg()
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    chunk = cfg.attn_chunk_q if S > cfg.attn_chunk_threshold else 0
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    shape = (f"train: B={B} H={H} K={K} Sq={S} Skv={S} hd={hd} "
+             f"window=None softcap=None causal")
+
+    def model_layout():
+        q5 = _rand(gen, (B, S, K, H // K, hd), torch.bfloat16)
+        k4 = _rand(gen, (B, S, K, hd), torch.bfloat16)
+        v4 = _rand(gen, (B, S, K, hd), torch.bfloat16)
+        return (q5.reshape(B, S, H, hd).transpose(1, 2), k4.transpose(1, 2),
+                v4.transpose(1, 2))
+    n0 = flash_attention.launches
+    args = model_layout()
+    got = flash_attention(*args)
+    torch.cuda.synchronize()
+    err = _check("flash_attention", got, flash_attention_plain(*args),
+                 "bfloat16", shape)
+    del got
+    one = 2 * (B * S * H * hd + 2 * B * S * K * hd)
+
+    def make_sets():
+        return [model_layout() for _ in range(n_sets(one))]
+    sets = make_sets()
+    ms = time_ms(lambda q, k, v: flash_attention(q, k, v), sets)
+    plain_ms = time_ms(lambda q, k, v: flash_attention_plain(q, k, v), sets,
+                       iters=5, warmup=1)
+    lib_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), sets)
+    q, k, v = sets[0]
+    o = flash_attention(q, k, v)
+    do = torch.randn_like(o)
+    bwd_ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, do,
+                                                 chunk=chunk), [()],
+                     iters=5, warmup=1)
+    flash_attention.launches = n0  # the checks' launches are not the path's
+    pairs = S * (S + 1) // 2
+    flops = 4 * B * H * pairs * hd
+    byts = 2 * (2 * B * H * S * hd) + 2 * (2 * B * K * S * hd)
+    # the backward reads q, k, v, o, dO and writes dq, dk, dv; its five
+    # products over the causal pairs are 2.5x the forward's two
+    bwd_bound = max(2.5 * flops / PEAK_FLOPS["bfloat16"],
+                    2 * (4 * B * H * S * hd + 4 * B * K * S * hd)
+                    / PEAK_BYTES_S) * 1e3
+    log(f"[train] plain attention backward (flash_attention_bwd, fp32 "
+        f"products, query chunk {chunk}) at {shape}: {bwd_ms:.4f} ms a "
+        f"call, x {cfg.n_layers} layers = {bwd_ms * cfg.n_layers:.2f} ms a "
+        f"step; bf16 bound {bwd_bound:.4f} ms")
+    del sets, q, k, v, o, do, args
+    torch.cuda.empty_cache()
+    return _entry("flash_attention", "flash_attention.cu",
+                  "src/repro/kernels/flash_attention.py:92",
+                  f"{TRAIN['arch']} train", shape, err, ms, plain_ms, lib_ms,
+                  flops, byts, "bfloat16", (make_sets, lambda q, k, v:
+                                            flash_attention(q, k, v),
+                                            "flash_fwd")), bwd_ms
+
+
+def phase_train(entry, bwd_ms):
+    """Full-width granite-8b cut to TRAIN["layers"] layers, bf16, remat
+    per block: TRAIN["steps"] steps of make_train_step on one repeated
+    batch of the port's synthetic pipeline (launches counted per step),
+    then 2 steps with accum_steps=2 and 2 with simulate_int8; fails
+    unless loss and grad norm stay finite, the loss falls and flash
+    launches exactly twice per layer a step.  For information: step
+    time, tokens/s, peak memory, MFU and one profiled step by kind."""
+    import gc
+
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import model as M
+    from repro_torch.training.adamw import adamw_init
+    from repro_torch.training.compress import simulate_int8
+    from repro_torch.training.data import make_pipeline
+    from repro_torch.training.step import make_train_step
+    cfg = _train_cfg()
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    n_params = M.param_count(cfg)
+    log(f"[train] {TRAIN['arch']} full width, {cfg.n_layers} of 36 layers: "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+        f"hd {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {n_params} "
+        f"params ({cfg.dtype}, fp32 masters and moments), remat "
+        f"{cfg.remat}; init {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+             next(make_pipeline(cfg.vocab, B, S, seed=0)).items()}
+    per_step_flash = _train_launches(cfg)["flash_attention"]
+
+    def run(step, n, micro=1):
+        nonlocal params, opt
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            flash_attention.launches = 0
+            t = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            if flash_attention.launches != per_step_flash * micro:
+                raise RuntimeError(
+                    f"train: {flash_attention.launches} flash launches in a "
+                    f"step, want {per_step_flash * micro}")
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                raise RuntimeError(f"train: loss {loss}, grad norm {gnorm}")
+            out.append((loss, gnorm, dt))
+        return out
+
+    step = make_train_step(cfg, lr=TRAIN["lr"])
+    main = run(step, TRAIN["steps"])
+    losses = [x[0] for x in main]
+    log(f"[train] {TRAIN['steps']} steps lr {TRAIN['lr']} on one batch "
+        f"{B} x {S}: loss {[round(x, 4) for x in losses]}, grad_norm "
+        f"{[round(x[1], 4) for x in main]}, step_s "
+        f"{[round(x[2], 4) for x in main]}; flash launches "
+        f"{per_step_flash} a step ok")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"train: the loss did not fall: {losses}")
+    entry["launches"] = per_step_flash * TRAIN["steps"]
+    acc = run(make_train_step(cfg, lr=TRAIN["lr"], accum_steps=2), 2,
+              micro=2)
+    comp = run(make_train_step(cfg, lr=TRAIN["lr"],
+                               compress_fn=simulate_int8), 2)
+    log(f"[train] accum_steps 2: loss {[round(x[0], 4) for x in acc]} "
+        f"step_s {[round(x[2], 4) for x in acc]}; simulate_int8: loss "
+        f"{[round(x[0], 4) for x in comp]} step_s "
+        f"{[round(x[2], 4) for x in comp]}; finite ok")
+    step_s = float(np.median([x[2] for x in main[1:]]))
+    flops = _model_flops(cfg, B, S)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[train] step_s median {step_s:.4f} (steps 2-{TRAIN['steps']}), "
+        f"tokens/s {B * S / step_s:.1f}, peak {peak:.3f} GiB, model "
+        f"FLOPs {flops:.4g} a step, MFU {flops / step_s / PEAK_FLOPS['bfloat16']:.4f} "
+        f"(dense bf16 peak 989 TFLOP/s); plain attention backward "
+        f"{bwd_ms * cfg.n_layers / 1e3 / step_s:.4f} of the step (events, "
+        f"phase 5e)")
+    profile_train_step(step, lambda: (params, opt), batch)
+    del params, opt, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def profile_train_step(step, state, batch):
+    """torch.profiler (CPU and CUDA) over one train step: the device's
+    busy share and its time by kind, from the raw trace's device events.
+    Kernels that run inside the device spans of the
+    ``flash_attention_bwd`` and ``adamw_update`` ranges are the plain
+    attention backward and the optimizer; the rest go by kernel name:
+    flash (its forward kernel), matmul, elementwise and other."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    params, opt = state()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ranges = {"flash_attention_bwd": "attention backward (plain)",
+              "adamw_update": "optimizer"}
+    events = [ev for ev in prof.profiler.kineto_results.events()
+              if ev.device_type() == DeviceType.CUDA]
+    spans = [(ev.start_ns(), ev.end_ns(), ranges[ev.name()])
+             for ev in events if ev.name() in ranges]
+    kernels = [ev for ev in events if ev.name() not in ranges]
+
+    def kind_of(ev):
+        for start, end, kind in spans:
+            if start <= ev.start_ns() < end:
+                return kind
+        low = ev.name().lower()
+        return ("flash" if "flash_fwd" in low else
+                "matmul" if any(k in low for k in (
+                    "gemm", "nvjet", "xmma", "cutlass", "gemv")) else
+                "elementwise" if "elementwise" in low else "other")
+    by_kind: dict[str, float] = {}
+    by_name: dict[tuple, float] = {}
+    for ev in kernels:
+        us = (ev.end_ns() - ev.start_ns()) / 1e3
+        kind = kind_of(ev)
+        by_kind[kind] = by_kind.get(kind, 0.0) + us
+        by_name[kind, ev.name()] = by_name.get((kind, ev.name()), 0.0) + us
+    busy = sum(by_kind.values())
+    if busy == 0:
+        log("[train] profiled step: not measured (the profiler recorded no "
+            "device events)")
+        return
+    n_spans = {k: sum(s[2] == k for s in spans) for k in ranges.values()}
+    log(f"[train] profiled step: wall {wall_us / 1e3:.2f} ms, "
+        f"{len(kernels)} device events, busy {busy / 1e3:.2f} ms (share "
+        f"{busy / wall_us:.4f}, idle {1 - busy / wall_us:.4f}; profiler "
+        f"overhead included); range spans {n_spans}")
+    for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        log(f"[train]   {kind}: {us / 1e3:.3f} ms ({us / busy:.4f} of "
+            f"device time)")
+        top = sorted(((t, n) for (k, n), t in by_name.items() if k == kind),
+                     reverse=True)[:3]
+        for t, n in top:
+            log(f"[train]     {t / 1e3:.3f} ms: {n[:90]}")
+
+
 class _Phase:
     """Logs a phase's wall time when it ends."""
 
@@ -1893,6 +2327,12 @@ def main():
         phase_parity("gemma3-27b", 20)
         phase_parity("xlstm-350m", 5)
         phase_parity("gemma2-9b", 20, kv_quant="int8")
+    with _Phase("4b grad parity"):
+        for arch in ("granite-8b", "recurrentgemma-2b",
+                     "granite-moe-1b-a400m", "whisper-large-v3",
+                     "gemma2-9b"):
+            phase_grad_parity(arch)
+        phase_flash_grad()
     for arch, entries in kernels.items():
         with _Phase(f"5 serve + 6 breakdown {arch}"):
             eng = phase_serve(arch, entries)
@@ -1911,6 +2351,10 @@ def main():
         phase_pool()
     with _Phase("5d batcher"):
         phase_batcher()
+    with _Phase("5e train"):
+        train_entry, bwd_ms = phase_train_kernels()
+        phase_train(train_entry, bwd_ms)
+        kernels["granite-8b train"] = [train_entry]
     with _Phase("7 device_ms"):
         phase_device_time([e for es in kernels.values() for e in es])
     log(f"[time] total {time.perf_counter() - t_start:.1f} s")

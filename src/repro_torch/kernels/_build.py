@@ -19,6 +19,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -94,6 +96,19 @@ def load(name: str) -> ctypes.CDLL:
         lib.kernel_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return lib
+
+
+def check_no_grad(what: str, *tensors) -> None:
+    """Raise if grad is enabled and an input requires grad: a raw kernel
+    wrapper has no backward, and the tensor it returns would silently
+    drop the gradient.  Differentiable calls go through the wrapper's
+    ``torch.autograd.Function`` (``ops.attention_op``, ``ops.rglru_op``)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad, and this raw kernel wrapper "
+            f"has no backward; call it through its autograd Function "
+            f"(repro_torch.kernels.ops) or under torch.no_grad()")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -9,11 +9,13 @@ jnp.
 
 ``decode_attention`` runs the plain version on a CPU tensor and launches
 the kernel on a CUDA tensor; there is no other switch and no fallback.
-Which of the source's two kernels a launch takes follows from (dtype,
-head_dim) alone (``instance``): bf16 at head_dim 64, 128 and 256 runs
-``decode_mma`` (tensor cores, a cp.async ring); fp32 at every head_dim
-and bf16 at 16 and 32 run ``decode_simt`` (fp32 on the CUDA cores).
-``decode_attention.launches`` counts kernel launches, one a call.
+Decode serves only: it has no backward, and raises when grad is enabled
+and an input requires grad.  Which of the source's two kernels a launch
+takes follows from (dtype, head_dim) alone (``instance``): bf16 at
+head_dim 64, 128 and 256 runs ``decode_mma`` (tensor cores, a cp.async
+ring); fp32 at every head_dim and bf16 at 16 and 32 run ``decode_simt``
+(fp32 on the CUDA cores).  ``decode_attention.launches`` counts kernel
+launches, one a call.
 """
 
 from __future__ import annotations
@@ -92,6 +94,7 @@ def decode_attention(q, k, v, q_pos, kv_pos, *, window=None, softcap=None):
     On CUDA the inputs may be strided views with a contiguous last dim
     (the model passes its (B, S, K, hd) cache transposed, not copied).
     """
+    _build.check_no_grad("decode_attention", q, k, v)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, q_pos, kv_pos,
                                       window=window, softcap=softcap)

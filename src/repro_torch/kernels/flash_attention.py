@@ -7,6 +7,15 @@ same function in plain PyTorch, as ``repro.kernels.ref`` does in jnp.
 
 ``flash_attention`` runs the plain version on a CPU tensor and launches
 a kernel on a CUDA tensor; there is no other switch and no fallback.
+It has no backward, so it raises when grad is enabled and an input
+requires grad.  ``flash_attention_fn`` is the differentiable call (a
+``torch.autograd.Function``): its forward is ``flash_attention`` (the
+kernel on the card), its backward ``flash_attention_bwd``, the exact
+gradient of the plain version written out in plain tensor ops, chunked
+over queries, on both devices.  The reference has no backward Pallas
+kernel (its trainer differentiates the einsum path), so the backward
+has no kernel yet; ``flash_attention_plain`` stays the yardstick that
+the tests differentiate with autograd.
 Which of the source's two kernels a launch takes follows from (dtype,
 head_dim) alone (``instance``): bf16 at head_dim 64, 128 and 256 runs
 ``flash_fwd_wgmma`` (tensor cores, TMA); fp32 at every head_dim and bf16
@@ -72,6 +81,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
     or TMA boxes), and q's too where ``instance`` is ``"wgmma"`` (TMA
     loads q as well); the output takes q's strides.
     """
+    _build.check_no_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap)
@@ -98,6 +108,102 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal=True, window=None,
+                        softcap=None, chunk=0):
+    """The gradient (dq, dk, dv) of ``flash_attention_plain`` at (q, k,
+    v) for the output gradient ``do``, given its output ``o``; shapes as
+    ``flash_attention``'s, results in the inputs' dtypes.
+
+    Plain tensor ops in fp32, over query chunks of ``chunk`` rows (0:
+    one chunk), so the score-sized buffers are (B, H, chunk, Skv).  Per
+    chunk: recompute P against the keys the mask can keep (causal: up to
+    the chunk's last query; window: from its first query's window on),
+    dV += P^T dO, dP = dO V^T, dS = P * (dP - rowsum(dO * O)) times the
+    softcap's derivative 1 - tanh^2, dQ = dS K * scale, dK += dS^T Q *
+    scale, each kv head summing over its G query heads.  This is the
+    gradient that ``jax.grad`` takes of the reference's einsum attention.
+    """
+    B, H, Sq, hd = q.shape
+    K, Skv = k.shape[1], k.shape[2]
+    G = H // K
+    scale = hd ** -0.5
+    f32 = torch.float32
+    q5 = q.reshape(B, K, G, Sq, hd)
+    o5 = o.reshape(B, K, G, Sq, hd)
+    do5 = do.reshape(B, K, G, Sq, hd)
+    kf, vf = k.to(f32), v.to(f32)
+    # rowsum(dO * O) = rowsum(P * dP): the softmax's Jacobian term
+    dsum = (do5.to(f32) * o5.to(f32)).sum(-1)
+    dq = torch.empty((B, K, G, Sq, hd), dtype=f32, device=q.device)
+    dk = torch.zeros((B, K, Skv, hd), dtype=f32, device=q.device)
+    dv = torch.zeros_like(dk)
+    cq = chunk if 0 < chunk < Sq else Sq
+    for s0 in range(0, Sq, cq):
+        s1 = min(s0 + cq, Sq)
+        lo = max(0, s0 - window + 1) if window is not None else 0
+        hi = min(Skv, s1) if causal else Skv
+        qc, doc = q5[:, :, :, s0:s1].to(f32), do5[:, :, :, s0:s1].to(f32)
+        kc, vc = kf[:, :, lo:hi], vf[:, :, lo:hi]
+        s = torch.einsum("bkgqd,bktd->bkgqt", qc, kc) * scale
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        qp = torch.arange(s0, s1, device=q.device)[:, None]
+        kp = torch.arange(lo, hi, device=q.device)[None, :]
+        mask = torch.ones((s1 - s0, hi - lo), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= kp <= qp
+        if window is not None:
+            mask &= kp > qp - window
+        p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+        del s
+        dv[:, :, lo:hi] += torch.einsum("bkgqt,bkgqd->bktd", p, doc)
+        dp = torch.einsum("bkgqd,bktd->bkgqt", doc, vc)
+        ds = p.mul_(dp.sub_(dsum[:, :, :, s0:s1, None]))
+        del dp
+        if softcap is not None:
+            ds.mul_(1.0 - t * t)
+            del t
+        dq[:, :, :, s0:s1] = torch.einsum("bkgqt,bktd->bkgqd", ds,
+                                          kc) * scale
+        dk[:, :, lo:hi] += torch.einsum("bkgqt,bkgqd->bktd", ds,
+                                        qc) * scale
+        del ds
+    return (dq.reshape(B, H, Sq, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _FlashFn(torch.autograd.Function):
+    """flash_attention forward (the kernel on the card), plain chunked
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, chunk):
+        o = flash_attention(q, k, v, causal=causal, window=window,
+                            softcap=softcap)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap,
+                      chunk=chunk)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        with torch.profiler.record_function("flash_attention_bwd"):
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, do, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_fn(q, k, v, *, causal=True, window=None, softcap=None,
+                       chunk=0):
+    """Differentiable ``flash_attention``: the same forward (the kernel on
+    a CUDA tensor, the plain version on a CPU tensor) with
+    ``flash_attention_bwd`` (query chunks of ``chunk`` rows) as its
+    backward."""
+    return _FlashFn.apply(q, k, v, causal, window, softcap, chunk)
 
 
 def _check(q, k, v, H, K, hd):

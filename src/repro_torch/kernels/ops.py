@@ -6,7 +6,9 @@ those tensors (the kernels read through strides), so neither the
 activations nor the KV cache are copied into kernel layout.  The model's
 ``attn_apply``, ``attn_decode`` and ``rglru_apply`` call them on every
 device: a CUDA tensor launches the kernels, a CPU tensor runs their
-plain versions.
+plain versions.  Attention and the RG-LRU scan go through the kernels'
+``torch.autograd.Function``s, so a loss differentiates through them on
+both devices; decode has no backward (serving only).
 """
 
 from __future__ import annotations
@@ -14,13 +16,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.flash_attention import flash_attention_fn
+from repro_torch.kernels.rglru_scan import rglru_scan_fn
 
 
 def attention_op(q, k, v, *, causal=True, window=None, softcap=None,
-                 positions=None):
+                 positions=None, chunk_q=0):
     """q: (B, S, K, G, hd); k, v: (B, T, K, hd) -> (B, S, K, G, hd).
+
+    ``chunk_q``: the query chunk of the backward (0: one chunk), which
+    bounds its score buffers to (B, H, chunk_q, T).
 
     The flash kernel takes positions as indices from 0; ``positions``
     (B, S), when given, must be exactly that (prefill from position 0),
@@ -31,8 +36,9 @@ def attention_op(q, k, v, *, causal=True, window=None, softcap=None,
     if positions is not None:
         _check_positions(positions, B, S)
     qh = q.reshape(B, S, K * G, hd).transpose(1, 2)
-    o = flash_attention(qh, k.transpose(1, 2), v.transpose(1, 2),
-                        causal=causal, window=window, softcap=softcap)
+    o = flash_attention_fn(qh, k.transpose(1, 2), v.transpose(1, 2),
+                           causal=causal, window=window, softcap=softcap,
+                           chunk=chunk_q)
     return o.transpose(1, 2).reshape(B, S, K, G, hd)
 
 
@@ -65,4 +71,4 @@ def decode_attention_op(q, k, v, q_pos, kv_pos, *, window=None,
 
 def rglru_op(a, gated, h0=None):
     """Diagonal linear recurrence in model layout (B, S, R)."""
-    return rglru_scan(a, gated, h0)
+    return rglru_scan_fn(a, gated, h0)

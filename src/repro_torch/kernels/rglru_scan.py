@@ -9,6 +9,12 @@ the semantics of ``repro.kernels.ref.ref_rglru_scan``.
 
 ``rglru_scan`` runs the plain version on a CPU tensor and launches the
 kernel on a CUDA tensor; there is no other switch and no fallback.
+It has no backward, so it raises when grad is enabled and an input
+requires grad.  ``rglru_scan_fn`` is the differentiable call (a
+``torch.autograd.Function``): its backward (``rglru_scan_bwd``) is the
+reverse-time recurrence g_t = dh_t + a_{t+1} g_{t+1}, run through
+``rglru_scan`` itself on time-flipped inputs (the kernel on the card),
+then da_t = g_t h_{t-1}, db_t = g_t and dh0 = a_0 g_0.
 ``rglru_scan.launches`` counts kernel launches.
 """
 
@@ -44,6 +50,7 @@ def rglru_scan(a, b, h0=None):
     contiguous and of one dtype (float32 or bfloat16); h0 may be any
     dtype (the kernel reads it as fp32).
     """
+    _build.check_no_grad("rglru_scan", a, b, h0)
     if a.device.type == "cpu":
         return rglru_scan_plain(a, b, h0)
     B, S, R = a.shape
@@ -65,6 +72,46 @@ def rglru_scan(a, b, h0=None):
 
 
 rglru_scan.launches = 0
+
+
+def rglru_scan_bwd(a, h, h0, dh):
+    """The gradient (da, db, dh0) of ``rglru_scan`` at (a, b, h0) given
+    its output ``h`` and the output gradient ``dh``; da and db in a's
+    dtype, dh0 fp32 (None when h0 is None).  g, the gradient of each
+    state, runs backward in time, g_t = dh_t + a_{t+1} g_{t+1}: one more
+    ``rglru_scan`` (fp32) over the flipped sequence of (a shifted one
+    step, dh)."""
+    f32 = torch.float32
+    B, S, R = a.shape
+    a32 = a.to(f32)
+    zero = a32.new_zeros((B, 1, R))
+    a_next = torch.cat([a32[:, 1:], zero], dim=1)
+    g = rglru_scan(a_next.flip(1), dh.to(f32).flip(1)).flip(1)
+    first = zero if h0 is None else h0.to(f32)[:, None]
+    h_prev = torch.cat([first, h[:, :-1].to(f32)], dim=1)
+    dh0 = None if h0 is None else a32[:, 0] * g[:, 0]
+    return (g * h_prev).to(a.dtype), g.to(a.dtype), dh0
+
+
+class _RglruFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = rglru_scan(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        ctx.h0_dtype = None if h0 is None else h0.dtype
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        da, db, dh0 = rglru_scan_bwd(a, h, h0, dh)
+        return da, db, None if dh0 is None else dh0.to(ctx.h0_dtype)
+
+
+def rglru_scan_fn(a, b, h0=None):
+    """Differentiable ``rglru_scan`` (same forward; ``rglru_scan_bwd`` as
+    its backward, through the kernel on the card)."""
+    return _RglruFn.apply(a, b, h0)
 
 
 def _check(a, b, h0):

@@ -1,2 +1,2 @@
 """Launchers (PyTorch port of ``repro.launch``): the Level-B serving
-launcher ``serve``."""
+launcher ``serve`` and the training driver ``train``."""

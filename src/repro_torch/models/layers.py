@@ -81,10 +81,13 @@ def rms_norm(x, scale, eps):
 
 
 def softcap(x, cap):
-    """cap * tanh(x / cap); x is left alone, and only one new tensor is
-    made (the logits it caps may be GBs)."""
+    """cap * tanh(x / cap); x is left alone.  Outside autograd only one
+    new tensor is made (the logits it caps may be GBs); where x requires
+    grad the ops are out of place (tanh's backward reads its output)."""
     if cap is None:
         return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return torch.tanh(x / cap) * cap
     return (x / cap).tanh_().mul_(cap)
 
 
@@ -106,24 +109,76 @@ def rope(x, positions, theta):
     return out.to(x.dtype)
 
 
+def _attn_scores(q, k, scale, cap):
+    # q: (B, S, K, G, hd), k: (B, T, K, hd) -> (B, K, G, S, T) fp32
+    s = torch.einsum("bskgd,btkd->bkgst", q.to(f32), k.to(f32))
+    return softcap(s * scale, cap)
+
+
 def attention(q, k, v, *, q_positions, kv_positions, causal=True,
-              window=None, softcap_val=None):
-    """Masked multi-query attention (GQA layout), the reference's
-    unchunked einsum path.
+              window=None, softcap_val=None, chunk_q=0, chunk_kv=0):
+    """Masked multi-query attention (GQA layout), the reference's einsum
+    path.
 
     q: (B, S, K, G, hd); k, v: (B, T, K, hd).
     q_positions: (B, S) absolute positions of queries.
     kv_positions: (B, T) absolute positions of keys (-1 = invalid slot).
     window: if set, keys with q_pos - k_pos >= window are masked (local).
+    chunk_q/chunk_kv: if both > 0 (and S > 1), the online-softmax path
+    (``_chunked_attention``).
     """
-    scale = q.shape[-1] ** -0.5
-    s = torch.einsum("bskgd,btkd->bkgst", q.to(f32), k.to(f32))
-    s = softcap(s * scale, softcap_val)
+    if chunk_q and chunk_kv and q.shape[1] > 1:
+        return _chunked_attention(q, k, v, q_positions=q_positions,
+                                  kv_positions=kv_positions, causal=causal,
+                                  window=window, softcap_val=softcap_val,
+                                  chunk_q=chunk_q, chunk_kv=chunk_kv)
+    s = _attn_scores(q, k, q.shape[-1] ** -0.5, softcap_val)
     mask = _attn_mask(q_positions, kv_positions, causal, window)
     s = torch.where(mask[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype).to(f32), v.to(f32))
     return o.to(q.dtype)
+
+
+def _chunked_attention(q, k, v, *, q_positions, kv_positions, causal,
+                       window, softcap_val, chunk_q, chunk_kv):
+    """Online-softmax attention, O(chunk_q * chunk_kv) score memory (the
+    reference's ``_chunked_attention``, its XLA path for long sequences;
+    a plain yardstick here: the model's attention is ``ops.attention_op``,
+    whose backward chunks over queries).  Ragged tails are padded (keys
+    with position -1, so masked) and cut off again."""
+    B, S, K, G, hd = q.shape
+    T = k.shape[1]
+    scale = hd ** -0.5
+    cq, ckv = min(chunk_q, S), min(chunk_kv, T)
+    nq, nkv = -(-S // cq), -(-T // ckv)
+    qp = F.pad(q_positions, (0, nq * cq - S))
+    kvp = F.pad(kv_positions, (0, nkv * ckv - T), value=-1)
+    q_ = F.pad(q, (0, 0, 0, 0, 0, 0, 0, nq * cq - S))
+    k_ = F.pad(k, (0, 0, 0, 0, 0, nkv * ckv - T))
+    v_ = F.pad(v, (0, 0, 0, 0, 0, nkv * ckv - T))
+    outs = []
+    for i in range(nq):
+        q_blk, qp_blk = q_[:, i * cq:(i + 1) * cq], qp[:, i * cq:(i + 1) * cq]
+        acc = torch.zeros((B, K, G, cq, hd), dtype=f32, device=q.device)
+        m = torch.full((B, K, G, cq), -math.inf, dtype=f32, device=q.device)
+        l_sum = torch.zeros((B, K, G, cq), dtype=f32, device=q.device)
+        for j in range(nkv):
+            sl = slice(j * ckv, (j + 1) * ckv)
+            s = _attn_scores(q_blk, k_[:, sl], scale, softcap_val)
+            mask = _attn_mask(qp_blk, kvp[:, sl], causal, window)
+            s = torch.where(mask[:, None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l_sum = l_sum * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgst,btkd->bkgsd", p.to(v.dtype).to(f32),
+                v_[:, sl].to(f32))
+            m = m_new
+        o = acc / torch.clamp_min(l_sum[..., None], 1e-30)
+        outs.append(o.permute(0, 3, 1, 2, 4).to(q.dtype))
+    return torch.cat(outs, dim=1)[:, :S]
 
 
 def _attn_mask(q_pos, kv_pos, causal, window):
@@ -231,6 +286,9 @@ def attn_apply(p, cfg, x, positions, *, kind="attn_global", encoder_kv=None,
     """
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
+    # the reference's chunk rule: above the threshold its attention runs
+    # in query chunks; here those chunks bound the backward's scores
+    chunk_q = cfg.attn_chunk_q if S > cfg.attn_chunk_threshold else 0
     if kind == "attn_cross":
         ek, ev = encoder_kv
         q = _project_q(p, cfg, x)
@@ -238,7 +296,7 @@ def attn_apply(p, cfg, x, positions, *, kind="attn_global", encoder_kv=None,
             q = rope(q, positions, cfg.rope_theta)
         # every (query, frame) pair is kept, so the kernel's positions
         # (indices from 0 on both sides) never matter: none are checked
-        o = ops.attention_op(q, ek, ev, causal=False)
+        o = ops.attention_op(q, ek, ev, causal=False, chunk_q=chunk_q)
         return dot(o.reshape(B, S, H * hd), p["wo"]), None
     q, k, v = _project_qkv(p, cfg, x)
     causal = kind != "attn_bidir"
@@ -247,7 +305,8 @@ def attn_apply(p, cfg, x, positions, *, kind="attn_global", encoder_kv=None,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     o = ops.attention_op(q, k, v, causal=causal, window=window,
-                         softcap=cfg.attn_softcap, positions=positions)
+                         softcap=cfg.attn_softcap, positions=positions,
+                         chunk_q=chunk_q)
     y = dot(o.reshape(B, S, H * hd), p["wo"])
 
     cache = None

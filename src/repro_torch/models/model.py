@@ -42,6 +42,7 @@ Public surface:
   init_cache(cfg, B, len, device)     -> stacked KV caches
   run_encoder(cfg, params, frames)    -> encoder output (B, T, D)
   forward(cfg, params, tokens, ...)   -> (hidden, caches, aux)
+  loss_fn(cfg, params, batch)         -> (loss, metrics)
   prefill(cfg, params, tokens, ...)   -> (logits, caches, aux); with
                                          ``caches=`` it writes into them
   decode_step(cfg, params, token, pos, caches) -> (logits, caches)
@@ -53,6 +54,7 @@ import math
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
@@ -334,9 +336,12 @@ def _zero_aux(cfg, device):
 
 
 def _run_layers(cfg, params_l, x, positions, *, caches=None, decode=False,
-                make_cache=0, enc_out=None, out_caches=None):
+                make_cache=0, enc_out=None, out_caches=None, remat=False):
     """Drive the stacked layer groups (``scan``, then ``rem_scan``): a
-    loop over each group's stacked index.
+    loop over each group's stacked index.  ``remat`` checkpoints each
+    block (``torch.utils.checkpoint``, non-reentrant): its activations
+    are recomputed in the backward, as the reference's per-block
+    ``jax.checkpoint`` (per block, not per period).
 
     Decode updates ``caches`` in place (a recurrent block's new state is
     copied into its stacked slice; the cross-attention k and v, which a
@@ -352,16 +357,18 @@ def _run_layers(cfg, params_l, x, positions, *, caches=None, decode=False,
         caches = init_cache(cfg, x.shape[0], make_cache, x.device) \
             if out_caches is None else out_caches
     aux_tot = _zero_aux(cfg, x.device)
+    block = _checkpointed(_apply_block) if remat else _apply_block
     for group, pattern, n in _groups(cfg):
+        layers = [_unstack(params_l[group][f"pos{i}"], n)
+                  for i in range(len(pattern))]
         for t in range(n):
             for i, kind in enumerate(pattern):
-                p_t = _index(params_l[group][f"pos{i}"], t)
+                p_t = layers[i][t]
                 c_t = _index(caches[group][f"pos{i}"], t) if caches \
                     else None
-                x, nc, aux = _apply_block(p_t, cfg, kind, x, positions,
-                                          cache=c_t, decode=decode,
-                                          make_cache=make_cache,
-                                          enc_out=enc_out)
+                x, nc, aux = block(p_t, cfg, kind, x, positions,
+                                   cache=c_t, decode=decode,
+                                   make_cache=make_cache, enc_out=enc_out)
                 if not decode:  # decode_step returns no aux
                     aux_tot = {a: v + aux[a] for a, v in aux_tot.items()}
                 if decode or make_cache:
@@ -376,26 +383,51 @@ def _index(tree, t):
             for k, v in tree.items()}
 
 
+def _unstack(tree, n):
+    """The ``n`` per-layer slices of a stacked parameter group, each leaf
+    split once (``torch.unbind``).  Under autograd the split's backward
+    stacks the layers' grads once; indexing each layer apart would give
+    each ``select`` a zero gradient as large as the whole stack."""
+    out = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
+        for t in range(n):
+            out[t][k] = parts[t]
+    return out
+
+
+def _checkpointed(fn):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward instead of kept."""
+    def run(*args, **kw):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False, **kw)
+    return run
+
+
 # --------------------------------------------------------------------------
 # encoder (whisper's stub frontend -> transformer encoder)
 # --------------------------------------------------------------------------
 
-def run_encoder(cfg: ArchConfig, params, frames):
+def _encoder_block(p, cfg, x, positions):
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, _ = L.attn_apply(p["attn"], cfg, h, positions, kind="attn_bidir")
+    x = x + y
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.mlp_apply(p["mlp"], h)
+
+
+def run_encoder(cfg: ArchConfig, params, frames, *, remat=False):
     """frames: (B, encoder_seq, D) precomputed frame embeddings (the
     reference's stub).  Returns the encoder's output (B, encoder_seq, D)
-    in the model dtype."""
+    in the model dtype.  ``remat`` checkpoints each block."""
     x = frames.to(cfg.tdtype)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     enc = params["encoder"]
-    stack = enc["scan"]["pos0"]
-    for t in range(stack["ln1"].shape[0]):
-        p = _index(stack, t)
-        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        y, _ = L.attn_apply(p["attn"], cfg, h, positions, kind="attn_bidir")
-        x = x + y
-        h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(p["mlp"], h)
+    block = _checkpointed(_encoder_block) if remat else _encoder_block
+    for p in _unstack(enc["scan"]["pos0"], cfg.encoder_layers):
+        x = block(p, cfg, x, positions)
     return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -442,7 +474,7 @@ def _add_pos_embed(cfg, params, x, positions):
 
 
 def forward(cfg: ArchConfig, params, tokens, *, patch_embeds=None,
-            enc_frames=None, make_cache=0, out_caches=None):
+            enc_frames=None, make_cache=0, out_caches=None, remat=False):
     """Full-sequence forward from position 0.  Returns (hidden (B,S,D),
     caches, aux).
 
@@ -451,7 +483,7 @@ def forward(cfg: ArchConfig, params, tokens, *, patch_embeds=None,
     them.  whisper: ``enc_frames`` (B, encoder_seq, D) drive the encoder
     (zeros where absent, for text-only traffic); tokens are decoder ids.
     ``out_caches``: the stacked cache ``make_cache`` writes into (see
-    ``prefill``).
+    ``prefill``).  ``remat``: checkpoint each block (training).
     """
     x = embed_tokens(cfg, params, tokens)
     if cfg.vision_tokens and patch_embeds is not None:
@@ -465,12 +497,62 @@ def forward(cfg: ArchConfig, params, tokens, *, patch_embeds=None,
         if enc_frames is None:
             enc_frames = torch.zeros((B, cfg.encoder_seq, cfg.d_model),
                                      dtype=x.dtype, device=x.device)
-        enc_out = run_encoder(cfg, params, enc_frames)
+        enc_out = run_encoder(cfg, params, enc_frames, remat=remat)
     x, caches, aux = _run_layers(cfg, params["layers"], x, positions,
                                  make_cache=make_cache, enc_out=enc_out,
-                                 out_caches=out_caches)
+                                 out_caches=out_caches, remat=remat)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, caches, aux
+
+
+def loss_fn(cfg: ArchConfig, params, batch):
+    """Next-token loss.  batch: tokens (B, S), labels (B, S) with -1 =
+    pad (and ``patch_embeds`` / ``enc_frames`` where the config takes
+    them).  Returns (loss, metrics): ``ce_loss`` and ``loss``, and on an
+    MoE config ``moe_aux_loss`` and ``expert_load`` (the loss adds 0.01
+    of the aux loss).  Under ``cfg.remat == "block"`` every block is
+    checkpointed.
+
+    The head and the cross-entropy run in sequence chunks of
+    ``min(S, max(cfg.loss_chunk // B, 256))`` tokens where that divides
+    S into more than one chunk, each checkpointed, so only one chunk's
+    fp32 (B, chunk, vocab) logits are alive at a time.
+    """
+    h, _, aux = forward(cfg, params, batch["tokens"],
+                        patch_embeds=batch.get("patch_embeds"),
+                        enc_frames=batch.get("enc_frames"),
+                        remat=cfg.remat == "block")
+    labels = batch["labels"]
+    if cfg.vision_tokens and batch.get("patch_embeds") is not None:
+        pad = labels.new_full((labels.shape[0], cfg.vision_tokens), -1)
+        labels = torch.cat([pad, labels], dim=1)
+    B, S, _ = h.shape
+
+    def ce(h_chunk, l_chunk):
+        logits = _head(cfg, params, h_chunk)  # (B, s, V) fp32
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, l_chunk.clamp_min(0).long()[..., None])
+        mask = (l_chunk >= 0).to(f32)
+        return ((lse - tgt[..., 0]) * mask).sum(), mask.sum()
+
+    chunk_s = (min(S, max(cfg.loss_chunk // max(B, 1), 256))
+               if cfg.loss_chunk else 0)
+    if chunk_s and S % chunk_s == 0 and chunk_s < S:
+        ce_chunk = _checkpointed(ce)
+        parts = [ce_chunk(h[:, i:i + chunk_s], labels[:, i:i + chunk_s])
+                 for i in range(0, S, chunk_s)]
+        tot = sum(t for t, _ in parts)
+        cnt = sum(c for _, c in parts)
+    else:
+        tot, cnt = ce(h, labels)
+    loss = tot / torch.clamp_min(cnt, 1.0)
+    metrics = {"ce_loss": loss}
+    if cfg.moe is not None:
+        metrics["moe_aux_loss"] = aux["moe_aux_loss"]
+        metrics["expert_load"] = aux["expert_load"]
+        loss = loss + 0.01 * aux["moe_aux_loss"]
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def prefill(cfg: ArchConfig, params, tokens, *, cache_len=None,

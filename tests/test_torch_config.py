@@ -63,6 +63,13 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.api.artifacts\n"
         "import repro_torch.examples.serve_continuous\n"
         "import repro_torch.examples.quickstart\n"
+        "import repro_torch.training, repro_torch.training.adamw\n"
+        "import repro_torch.training.step, repro_torch.training.tree\n"
+        "import repro_torch.training.checkpoint\n"
+        "import repro_torch.training.compress\n"
+        "import repro_torch.training.data, repro_torch.training.fault\n"
+        "import repro_torch.launch.train\n"
+        "import repro_torch.examples.train_100m\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"

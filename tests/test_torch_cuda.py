@@ -683,3 +683,120 @@ def test_concurrent_serves_equal_sequential_on_card(cuda):
         assert not t.is_alive()
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g, w)
+
+
+# ------------------------------------------------------------ training
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,S,hd,window,cap,chunk", [
+    (2, 4, 2, 128, 128, None, None, 0),
+    (1, 8, 2, 200, 128, None, None, 64),  # ragged S and chunk
+    (2, 4, 1, 130, 64, 48, None, 32),  # window, MQA
+    (1, 4, 2, 100, 256, None, 50.0, 0),  # softcap
+    (2, 2, 2, 77, 16, 20, 30.0, 16),  # the SIMT instance
+])
+def test_flash_autograd_matches_plain(cuda, B, H, K, S, hd, window, cap,
+                                      chunk, dtype):
+    """flash_attention_fn (kernel forward, plain chunked backward) on the
+    card against autograd through flash_attention_plain."""
+    from repro_torch.kernels.flash_attention import flash_attention_fn
+    rng = np.random.default_rng(S)
+    q = _rand(rng, (B, H, S, hd), dtype, cuda)
+    k = _rand(rng, (B, K, S, hd), dtype, cuda)
+    v = _rand(rng, (B, K, S, hd), dtype, cuda)
+    do = _rand(rng, (B, H, S, hd), dtype, cuda)
+    kw = dict(causal=True, window=window, softcap=cap)
+    n0 = flash_attention.launches
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = flash_attention_fn(*ins, chunk=chunk, **kw)
+    got = torch.autograd.grad(o, ins, do)
+    assert flash_attention.launches == n0 + 1  # the forward only
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_plain(*ins, **kw), ins, do)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,R,with_h0", [(2, 64, 256, False),
+                                           (3, 37, 130, True)])
+def test_rglru_autograd_matches_plain(cuda, B, S, R, with_h0, dtype):
+    """rglru_scan_fn on the card (two kernel launches: the forward and
+    the reverse-time backward) against autograd through the plain
+    version."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_fn
+    rng = np.random.default_rng(R)
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (B, S, R)).astype(
+        np.float32)).to(cuda, dtype)
+    b = _rand(rng, (B, S, R), dtype, cuda)
+    dh = _rand(rng, (B, S, R), dtype, cuda)
+    h0 = _rand(rng, (B, R), torch.float32, cuda) if with_h0 else None
+    n0 = rglru_scan.launches
+    ins = [a.clone().requires_grad_(), b.clone().requires_grad_()] + (
+        [h0.clone().requires_grad_()] if with_h0 else [])
+    got = torch.autograd.grad(rglru_scan_fn(*ins), ins, dh)
+    assert rglru_scan.launches == n0 + 2
+    ins = [t.clone().requires_grad_() for t in ins]
+    want = torch.autograd.grad(rglru_scan_plain(*ins), ins, dh)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x.float(), y.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-2b",
+                                  "granite-moe-1b-a400m",
+                                  "whisper-large-v3", "gemma2-9b"])
+def test_train_step_cuda_matches_cpu(cuda, arch):
+    """One reduced fp32 train step (remat per block) on the card against
+    the same step on the CPU: loss and grad norm (2e-4), the grads and
+    the updated parameters (2e-4 of each leaf's scale plus 2e-5;
+    recurrentgemma and whisper sit on a measured fp32 noise floor, see
+    tests/test_torch_grads.py: 1e-2 and 1e-3)."""
+    from repro_torch.training.adamw import adamw_init
+    from repro_torch.training.step import make_train_step
+    from repro_torch.training.tree import tree_map
+    cfg = get_reduced(arch)
+    rtol = {"recurrentgemma-2b": 1e-2, "whisper-large-v3": 1e-3}.get(
+        arch, 2e-4)
+    params = M.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 24)),
+             "labels": rng.integers(0, cfg.vocab, (2, 24))}
+    if cfg.encoder_layers:
+        batch["enc_frames"] = rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        # a copy on each device: the step updates its params in place
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        grads = []
+        step = make_train_step(cfg, lr=1e-3, compress_fn=lambda g: (
+            grads.append(g), g)[1])
+        p, _, m = step(p, adamw_init(p), {k: torch.as_tensor(v, device=dev)
+                                          for k, v in batch.items()})
+        out[str(dev)] = (m, grads[0], p)
+    (mc, gc, pc), (mg, gg, pg) = out["cpu"], out["cuda"]
+    for k in mc:  # the grad norm is held as the grads are
+        torch.testing.assert_close(
+            mg[k].cpu(), mc[k], atol=2e-5,
+            rtol=rtol if k == "grad_norm" else 2e-4)
+    # grads, and the parameters AdamW moved by them, to each leaf's scale;
+    # k's bias has a zero gradient (a shift of every score of a query by
+    # one value), which fp32 leaves as noise on both devices: it is held
+    # to zero at the scale of the same layer's wk gradient
+    grads_c = dict(M._leaves(gc))
+    for name, a in M._leaves(gg):
+        b = grads_c[name]
+        if name.endswith("/bk"):
+            scale = grads_c[name[:-2] + "wk"].abs().max().item()
+            for g in (a.cpu(), b):
+                assert g.abs().max().item() <= rtol * scale + 2e-5, name
+            continue
+        err = (a.cpu() - b).abs().max().item()
+        assert err <= rtol * b.abs().max().item() + 2e-5, name
+    # (Adam moves a k bias by lr times the sign of that noise: not held)
+    params_c = dict(M._leaves(pc))
+    for name, a in M._leaves(pg):
+        if not name.endswith("/bk"):
+            b = params_c[name]
+            err = (a.cpu() - b).abs().max().item()
+            assert err <= rtol * b.abs().max().item() + 2e-5, name
