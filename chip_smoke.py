@@ -145,6 +145,26 @@ Phases, each raising on failure (the script then exits non-zero):
               the dense bf16 peak, and one profiled step's device time by
               kind (matmul, flash, the plain attention backward,
               elementwise, optimizer);
+5f. mesh   -- the sharded serve path on the card: a one-rank NCCL
+              process group and a (1, 1) ("data", "model") DeviceMesh;
+              full-width granite-8b's parameters distributed by
+              ``param_shardings``; a prefill of batch 4 x 512 and 15
+              decode steps, eager, under ``use_mesh`` (activation
+              constraints bound, caches placed by ``cache_pspecs``),
+              twice, against the unmeshed eager path on the same weights:
+              flash and decode launched on the DTensors' local shards
+              (36 a prefill, 36 a decode step, counted per run), greedy
+              tokens identical, logits within 2e-3 of their scale; the
+              prefill and decode-step times both ways, for information
+              (the difference is DTensor's host cost per op);
+5g. dryrun -- ``repro_torch.launch.dryrun.run_cell`` on the meta device
+              (a fake process group; this process is rank 0) for
+              granite-8b's train_4k, prefill_32k and decode_32k cells on
+              the (32, 8) production mesh and decode_32k on (2, 32, 8):
+              per-device argument, output and temp bytes against the
+              card's 80 GB, FLOPs, bytes and collective bytes by kind;
+              fails where a cell whose model axis shards parameters ran
+              no collective;
 6. breakdown -- for information, after each path: prefill and
               decode-step times with the decode graph (the prefill into
               its static caches) and with the eager step, each request's
@@ -173,6 +193,7 @@ import math
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -2178,6 +2199,181 @@ def profile_train_step(step, state, batch):
             log(f"[train]     {t / 1e3:.3f} ms: {n[:90]}")
 
 
+# -------------------------------------------------------------- phase 5f
+MESH_PATH = dict(arch="granite-8b", batch=4, prefill=512, new=16)
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def _serve_eager(cfg, params, toks, cache_len, new, place):
+    """A prefill and ``new - 1`` greedy decode steps, eager; ``place(t,
+    n_extra)`` puts an input where the run needs it.  Returns (tokens
+    (B, new), each step's whole logits, prefill s, decode-step s)."""
+    import torch
+    from repro_torch.models import model as M
+
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+    B, P = toks.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, caches, _ = M.prefill(cfg, params, place(toks, 1),
+                              cache_len=cache_len)
+    lg = whole(lg)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    logits, steps = [lg], []
+    nxt = lg.argmax(-1).to(torch.int32)
+    out = [nxt]
+    for i in range(new - 1):
+        pos = torch.full((B,), P + i, dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = M.decode_step(cfg, params, place(nxt[:, None], 1),
+                                   place(pos, 0), caches)
+        lg = whole(lg)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        nxt = lg.argmax(-1).to(torch.int32)
+        logits.append(lg)
+        out.append(nxt)
+    return torch.stack(out, 1), logits, t_pre, steps
+
+
+def phase_mesh():
+    """The sharded serve path on the card: a one-rank NCCL process group,
+    a (1, 1) ("data", "model") mesh, full-width granite-8b's parameters
+    distributed by ``param_shardings``; a prefill of B 4 x 512 and 15
+    decode steps, eager, under ``use_mesh`` (constraints bound, caches
+    placed by ``cache_pspecs``) against the unmeshed eager path on the
+    same weights: flash and decode launched on local shards (36 a
+    prefill, 36 a step), identical greedy tokens, logits within 2e-3 of
+    their scale; prefill and decode-step medians both ways."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import distribute_params, param_shardings
+    from repro_torch.distributed.sharding import batch_pspec, distribute_tree
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.partition import use_mesh
+    spec = MESH_PATH
+    cfg = get_config(spec["arch"])
+    B, P, NEW = spec["batch"], spec["prefill"], spec["new"]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_debug_mesh((1, 1), ("data", "model"))
+        params = M.init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(0), "cuda")
+        toks = torch.as_tensor(np.random.default_rng(11).integers(
+            0, cfg.vocab, (B, P)), dtype=torch.int32, device="cuda")
+        counters = _kernel_counters()
+        with torch.no_grad():
+            plain = [_serve_eager(cfg, params, toks, P + NEW, NEW,
+                                  lambda t, n: t) for _ in range(2)]
+            dparams = distribute_params(params, cfg, mesh)
+            placements = param_shardings(cfg, mesh)
+
+            def place(t, n):
+                return distribute_tree({"t": t}, {"t": batch_pspec(
+                    mesh, batch_size=B, extra_dims=n)}, mesh)["t"]
+            meshed = []
+            for i in range(2):
+                for fn in counters.values():
+                    fn.launches = 0
+                with use_mesh(mesh):
+                    meshed.append(_serve_eager(cfg, dparams, toks, P + NEW,
+                                               NEW, place))
+                got = {n: fn.launches for n, fn in counters.items()}
+                want = _want(cfg, 1, NEW - 1)
+                log(f"[mesh] run {i}: launches {got} (want {want})")
+                if got != want:
+                    raise RuntimeError("mesh: the sharded path did not run "
+                                       "through the kernels as expected")
+        tok_p, log_p, _, _ = plain[-1]
+        tok_m, log_m, _, _ = meshed[-1]
+        rel = max(((a - b).abs().max() / b.abs().max()).item()
+                  for a, b in zip(log_m, log_p))
+        same = torch.equal(tok_m, tok_p)
+        pl = sorted({str(tuple(str(p) for p in v))
+                     for _, v in _leaves(placements)})
+        log(f"[mesh] {spec['arch']} full width ({cfg.n_layers} layers, "
+            f"{M.param_count(cfg)} params, {cfg.dtype}) on a (1, 1) "
+            f"('data', 'model') NCCL mesh, parameter placements {pl}; "
+            f"batch {B}, prompt {P}, {NEW - 1} decode steps; greedy tokens "
+            f"identical to the unmeshed path: {same}; logits max abs diff "
+            f"/ max abs {rel:.3e}")
+        if not same or not rel <= MODEL_TOL["rtol"]:
+            raise RuntimeError(f"mesh: the sharded path differs from the "
+                               f"unmeshed one (tokens same {same}, rel "
+                               f"{rel:.3e})")
+        for name, runs in (("unmeshed", plain), ("meshed", meshed)):
+            pre = [r[2] for r in runs]
+            steps = [x for r in runs for x in r[3]]
+            log(f"[mesh] {name} eager: prefill s {[round(x, 4) for x in pre]}"
+                f", decode step median {_median(steps):.4f} s "
+                f"(min {min(steps):.4f}, {len(steps)} steps)")
+        del params, dparams, plain, meshed
+    finally:
+        dist.destroy_process_group()
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# -------------------------------------------------------------- phase 5g
+# granite-8b's three cells on the production mesh, and one two-pod cell
+DRYRUN_CELLS = (("granite-8b", "train_4k", False),
+                ("granite-8b", "prefill_32k", False),
+                ("granite-8b", "decode_32k", False),
+                ("granite-8b", "decode_32k", True))
+
+
+def phase_dryrun():
+    """``launch/dryrun.py``'s ``run_cell`` on the meta device (a fake
+    process group of 256 or 512 ranks, this process rank 0): per-device
+    argument and temp bytes against the card's 80 GB, FLOPs, bytes and
+    collective bytes by kind; fails where a cell whose "model" axis
+    shards a parameter shows no collective."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import param_pspecs
+    from repro_torch.launch.dryrun import COLLECTIVES, run_cell
+    from repro_torch.launch.mesh import HW
+    for arch, shape, mp in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        r = run_cell(arch, shape, multi_pod=mp, save=False)
+        wall = time.perf_counter() - t0
+        mem, cost, coll = r["memory"], r["cost"], r["collectives"]
+        sizes = dict(zip(r["mesh_axes"], r["mesh"]))
+        log(f"[dryrun] {arch} {shape} mesh {r['mesh']} {r['mesh_axes']} "
+            f"act_mode {r['act_mode']} accum {r['accum_steps']}: wall "
+            f"{wall:.1f} s; per device argument "
+            f"{mem['argument_bytes'] / 1e9:.3f} GB, output "
+            f"{mem['output_bytes'] / 1e9:.3f} GB, temp "
+            f"{mem['temp_bytes'] / 1e9:.3f} GB (of {HW['hbm_bytes'] / 1e9:.0f}"
+            f" GB); flops {cost['flops']:.4e}, bytes "
+            f"{cost['bytes_accessed']:.4e}; collective bytes "
+            + ", ".join(f"{k} {coll[k]}" for k in COLLECTIVES)
+            + f" (total {coll['total']}, calls {coll['calls']})")
+        specs = param_pspecs(get_config(arch),
+                             types.SimpleNamespace(shape=sizes))
+        shards = any(a == "model" or (isinstance(a, tuple) and "model" in a)
+                     for _, spec in _leaves(specs) for a in spec)
+        if shards and not coll["total"]:
+            raise RuntimeError(f"dryrun {arch} {shape}: the model axis "
+                               "shards parameters but no collective ran")
+
+
 class _Phase:
     """Logs a phase's wall time when it ends."""
 
@@ -2355,6 +2551,10 @@ def main():
         train_entry, bwd_ms = phase_train_kernels()
         phase_train(train_entry, bwd_ms)
         kernels["granite-8b train"] = [train_entry]
+    with _Phase("5f mesh"):
+        phase_mesh()
+    with _Phase("5g dryrun"):
+        phase_dryrun()
     with _Phase("7 device_ms"):
         phase_device_time([e for es in kernels.values() for e in es])
     log(f"[time] total {time.perf_counter() - t_start:.1f} s")

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 
@@ -96,6 +97,27 @@ def load(name: str) -> ctypes.CDLL:
         lib.kernel_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return lib
+
+
+# devices a wrapper runs its plain version on: the CPU, and ``meta``
+# (shapes only, for the dry-run; nothing to compute)
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``DTensor`` (none exists before
+    ``torch.distributed.tensor`` is imported, so this imports nothing)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def check_local(what: str, *tensors) -> None:
+    """Raise on a DTensor: a kernel reads its input's data pointer, which
+    must be a local shard's (``ops`` hands the kernels ``to_local()``
+    shards)."""
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(f"{what}: got a DTensor; the kernel takes local "
+                        f"shards (call it through repro_torch.kernels.ops)")
 
 
 def check_no_grad(what: str, *tensors) -> None:

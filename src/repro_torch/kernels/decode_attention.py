@@ -7,8 +7,10 @@ what bounds it on the H100 and how); ``decode_attention_plain`` computes
 the same function in plain PyTorch, as ``repro.kernels.ref`` does in
 jnp.
 
-``decode_attention`` runs the plain version on a CPU tensor and launches
-the kernel on a CUDA tensor; there is no other switch and no fallback.
+``decode_attention`` runs the plain version on a CPU tensor (and on a
+``meta`` tensor, shapes only, for the dry-run) and launches the kernel
+on a CUDA tensor; there is no other switch and no fallback.  A DTensor
+never reaches it whole: ``ops`` hands it local shards.
 Decode serves only: it has no backward, and raises when grad is enabled
 and an input requires grad.  Which of the source's two kernels a launch
 takes follows from (dtype, head_dim) alone (``instance``): bf16 at
@@ -95,7 +97,7 @@ def decode_attention(q, k, v, q_pos, kv_pos, *, window=None, softcap=None):
     (the model passes its (B, S, K, hd) cache transposed, not copied).
     """
     _build.check_no_grad("decode_attention", q, k, v)
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return decode_attention_plain(q, k, v, q_pos, kv_pos,
                                       window=window, softcap=softcap)
     B, K, G, hd = q.shape
@@ -159,6 +161,7 @@ decode_attention.launches = 0
 
 
 def _check(q, k, v, q_pos, kv_pos):
+    _build.check_local("decode_attention", q, k, v, q_pos, kv_pos)
     B, K, G, hd = q.shape
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for {q.device}")

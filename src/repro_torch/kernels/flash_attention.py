@@ -5,8 +5,10 @@ kernel is ``csrc/flash_attention.cu`` (its header says what bounds it on
 the H100 and how it is laid out); ``flash_attention_plain`` computes the
 same function in plain PyTorch, as ``repro.kernels.ref`` does in jnp.
 
-``flash_attention`` runs the plain version on a CPU tensor and launches
-a kernel on a CUDA tensor; there is no other switch and no fallback.
+``flash_attention`` runs the plain version on a CPU tensor (and on a
+``meta`` tensor, shapes only, for the dry-run) and launches a kernel on
+a CUDA tensor; there is no other switch and no fallback.  A DTensor
+never reaches it whole: ``ops`` hands it local shards.
 It has no backward, so it raises when grad is enabled and an input
 requires grad.  ``flash_attention_fn`` is the differentiable call (a
 ``torch.autograd.Function``): its forward is ``flash_attention`` (the
@@ -45,33 +47,44 @@ def instance(dtype, hd) -> str:
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None,
-                          softcap=None):
+                          softcap=None, chunk=0):
     """q: (B, H, Sq, hd); k, v: (B, K, Skv, hd) with H % K == 0.
 
     Positions are indices from 0 for both q and k.  Returns (B, H, Sq,
     hd) in q.dtype; scores, softmax and the p.v product are fp32.
+    ``chunk`` > 0 computes the scores in blocks of that many query rows
+    (each row's softmax is its own, so the result is the same), which
+    bounds them to (B, H, chunk, Skv).
     """
     B, H, Sq, hd = q.shape
     K, Skv = k.shape[1], k.shape[2]
     G = H // K
     kr = k.repeat_interleave(G, dim=1).float()
     vr = v.repeat_interleave(G, dim=1).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * hd ** -0.5
-    if softcap is not None:
-        s = softcap * torch.tanh(s / softcap)
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
     k_pos = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window is not None:
-        mask &= k_pos > q_pos - window
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype)
+    cq = chunk if 0 < chunk < Sq else Sq
+    outs = []
+    for s0 in range(0, Sq, cq):
+        s1 = min(s0 + cq, Sq)
+        s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, s0:s1].float(),
+                         kr) * hd ** -0.5
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        q_pos = torch.arange(s0, s1, device=q.device)[:, None]
+        mask = torch.ones((s1 - s0, Skv), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window is not None:
+            mask &= k_pos > q_pos - window
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
 
 
-def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
+                    chunk=0):
     """q: (B, H, Sq, hd); k, v: (B, K, Skv, hd) with H % K == 0.
 
     Returns (B, H, Sq, hd) in q.dtype.  On CUDA the inputs may be any
@@ -79,12 +92,13 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
     (B, S, K, G, hd) activations transposed, not copied), with k's and
     v's rows 16-byte aligned (both kernels load them as 16-byte vectors
     or TMA boxes), and q's too where ``instance`` is ``"wgmma"`` (TMA
-    loads q as well); the output takes q's strides.
+    loads q as well); the output takes q's strides.  ``chunk``: the
+    plain version's query block (the kernel tiles on its own).
     """
     _build.check_no_grad("flash_attention", q, k, v)
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap)
+                                     softcap=softcap, chunk=chunk)
     B, H, Sq, hd = q.shape
     _, K, Skv, _ = k.shape
     _check(q, k, v, H, K, hd)
@@ -183,7 +197,7 @@ class _FlashFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, chunk):
         o = flash_attention(q, k, v, causal=causal, window=window,
-                            softcap=softcap)
+                            softcap=softcap, chunk=chunk)
         ctx.save_for_backward(q, k, v, o)
         ctx.kw = dict(causal=causal, window=window, softcap=softcap,
                       chunk=chunk)
@@ -207,6 +221,7 @@ def flash_attention_fn(q, k, v, *, causal=True, window=None, softcap=None,
 
 
 def _check(q, k, v, H, K, hd):
+    _build.check_local("flash_attention", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     if not (q.device == k.device == v.device):

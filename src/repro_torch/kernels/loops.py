@@ -1,0 +1,100 @@
+"""Python loops over time: the plain RG-LRU scan's and the mLSTM / sLSTM
+scans'.
+
+``time_loop(step, state, S)`` runs ``step`` for t = 0..S-1 and stacks
+its outputs on dim 1.  Under ``time_loops(repeat)`` (the dry-run's
+counting, ``repro_torch.launch.dryrun``) a loop runs loop-aware instead:
+its first step, then one more inside ``repeat(S - 1)``, a context that
+counts what runs in it S - 1 times; the other steps' outputs are that
+step's.  The autograd nodes the repeated step made run their backward
+inside ``repeat(S - 1)`` too, so a train step's backward through the
+loop is counted S - 1 times as well; what the autograd engine does
+between nodes (summing the per-step gradients of a tensor the loop
+slices) is not repeated.  Values are not those of the full loop (the
+dry-run runs on the meta device, where there are none).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+
+import torch
+
+_loops = threading.local()
+
+
+@contextlib.contextmanager
+def time_loops(repeat):
+    """Run ``time_loop`` loop-aware in this thread with ``repeat`` (a
+    factory of context managers taking a count); None runs every
+    step."""
+    prev = getattr(_loops, "repeat", None)
+    _loops.repeat = repeat
+    try:
+        yield
+    finally:
+        _loops.repeat = prev
+
+
+def time_loop(step, state, S):
+    """(state, outs): ``step(state, t) -> (state, out)`` run for t =
+    0..S-1, and its outputs stacked on dim 1."""
+    repeat = getattr(_loops, "repeat", None)
+    if repeat is None or S <= 2:
+        outs = []
+        for t in range(S):
+            state, out = step(state, t)
+            outs.append(out)
+        return state, torch.stack(outs, dim=1)
+    state, first = step(state, 0)
+    grad = torch.is_grad_enabled()
+    mark = _sequence_mark() if grad else None
+    with repeat(S - 1):  # steps 1..S-1 are one step's ops S - 1 times
+        state, last = step(state, 1)
+    if grad:
+        _repeat_backward(repeat, S - 1, mark, (state, last))
+    rest = last[:, None].expand(last.shape[:1] + (S - 1,) + last.shape[1:])
+    return state, torch.cat([first[:, None], rest], dim=1)
+
+
+def _sequence_mark() -> int:
+    """The sequence number an autograd node made now would get (the
+    probe's ops are kept from dispatch modes: no counter sees them)."""
+    with torch._C._DisableTorchDispatch():
+        probe = torch.zeros((), requires_grad=True).mul(1)
+    return probe.grad_fn._sequence_nr()
+
+
+def _repeat_backward(repeat, n, mark, outputs):
+    """Run the backward of every autograd node made after ``mark`` that
+    ``outputs`` reach (the repeated step's) inside ``repeat(n)``."""
+    roots = [t.grad_fn for t in _tensors(outputs) if t.grad_fn is not None]
+    seen, todo, nodes = set(), list(roots), []
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen or node._sequence_nr() <= mark \
+                or type(node).__name__ == "AccumulateGrad":
+            continue
+        seen.add(node)
+        nodes.append(node)
+        todo.extend(nxt for nxt, _ in node.next_functions)
+    active = []
+
+    def enter(*_):
+        active.append(repeat(n))
+        active[-1].__enter__()
+
+    def leave(*_):
+        active.pop().__exit__(None, None, None)
+    for node in nodes:
+        node.register_prehook(enter)
+        node.register_hook(leave)
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in _tensors(x)]
+    return []

@@ -7,8 +7,10 @@ flight; its header says what bounds it on the H100);
 ``rglru_scan_plain`` computes the same function in plain PyTorch, with
 the semantics of ``repro.kernels.ref.ref_rglru_scan``.
 
-``rglru_scan`` runs the plain version on a CPU tensor and launches the
-kernel on a CUDA tensor; there is no other switch and no fallback.
+``rglru_scan`` runs the plain version on a CPU tensor (and on a ``meta``
+tensor, shapes only, for the dry-run) and launches the kernel on a CUDA
+tensor; there is no other switch and no fallback.  A DTensor never
+reaches it whole: ``ops`` hands it local shards.
 It has no backward, so it raises when grad is enabled and an input
 requires grad.  ``rglru_scan_fn`` is the differentiable call (a
 ``torch.autograd.Function``): its backward (``rglru_scan_bwd``) is the
@@ -24,6 +26,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPES
+from repro_torch.kernels.loops import time_loop
 
 
 def rglru_scan_plain(a, b, h0=None):
@@ -36,11 +39,11 @@ def rglru_scan_plain(a, b, h0=None):
     h = torch.zeros((B, R), dtype=torch.float32, device=a.device) \
         if h0 is None else h0.float()
     a32, b32 = a.float(), b.float()
-    out = torch.empty((B, S, R), dtype=a.dtype, device=a.device)
-    for t in range(S):
+
+    def step(h, t):
         h = a32[:, t] * h + b32[:, t]
-        out[:, t] = h
-    return out
+        return h, h
+    return time_loop(step, h, S)[1].to(a.dtype)
 
 
 def rglru_scan(a, b, h0=None):
@@ -51,7 +54,7 @@ def rglru_scan(a, b, h0=None):
     dtype (the kernel reads it as fp32).
     """
     _build.check_no_grad("rglru_scan", a, b, h0)
-    if a.device.type == "cpu":
+    if a.device.type in _build.PLAIN_DEVICES:
         return rglru_scan_plain(a, b, h0)
     B, S, R = a.shape
     _check(a, b, h0)
@@ -115,6 +118,7 @@ def rglru_scan_fn(a, b, h0=None):
 
 
 def _check(a, b, h0):
+    _build.check_local("rglru_scan", a, b, h0)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: no kernel for {a.device}")
     if b.device != a.device or (h0 is not None and h0.device != a.device):

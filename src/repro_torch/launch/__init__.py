@@ -1,2 +1,3 @@
 """Launchers (PyTorch port of ``repro.launch``): the Level-B serving
-launcher ``serve`` and the training driver ``train``."""
+launcher ``serve``, the training driver ``train``, the production mesh
+``mesh`` and the meta-device ``dryrun``."""

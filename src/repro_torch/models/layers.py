@@ -25,6 +25,12 @@ Numerics policy (as the reference): parameters and activations are
 so for bf16 inputs); norms, softmax and rope run in fp32 and cast back.
 Unlike the reference, which clamps out-of-range cache slots
 (``lax.dynamic_update_slice``), the port raises on them.
+
+Under a ``DeviceMesh`` the parameters, caches and activations are
+DTensors; ``constrain`` pins activations at the reference's sites (q, k
+and v before a prefill's attention, the MLP's hidden, the MoE dispatch),
+and tensors a block builds itself (rope angles, zero states, index
+vectors) meet them as replicated DTensors (``partition.like``).
 """
 
 from __future__ import annotations
@@ -37,7 +43,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels._build import is_dtensor
+from repro_torch.kernels.loops import time_loop
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.partition import (constrain, flat_rows,
+                                          gather_dim, like, merge_last,
+                                          rows_out, shard_offset,
+                                          split_last)
 
 f32 = torch.float32
 NEG_INF = -1e30
@@ -70,7 +82,7 @@ class ParamSpec:
 
 def dot(x, w):
     """Matmul with fp32 accumulation, output in x.dtype."""
-    return torch.matmul(x, w)
+    return rows_out(torch.matmul(flat_rows(x), w))
 
 
 def rms_norm(x, scale, eps):
@@ -80,13 +92,23 @@ def rms_norm(x, scale, eps):
     return (y * (1.0 + scale.to(f32))).to(x.dtype)
 
 
+def log_sigmoid(x):
+    """log(sigmoid(x)); on a DTensor as -logaddexp(0, -x) (the same
+    function: DTensor has no sharding rule for logsigmoid's backward)."""
+    if is_dtensor(x):
+        return -torch.logaddexp(torch.zeros_like(x), -x)
+    return F.logsigmoid(x)
+
+
 def softcap(x, cap):
     """cap * tanh(x / cap); x is left alone.  Outside autograd only one
     new tensor is made (the logits it caps may be GBs); where x requires
-    grad the ops are out of place (tanh's backward reads its output)."""
+    grad the ops are out of place (tanh's backward reads its output), and
+    on a DTensor (which may be a partial sum, where tanh does not apply
+    shard by shard)."""
     if cap is None:
         return x
-    if torch.is_grad_enabled() and x.requires_grad:
+    if torch.is_grad_enabled() and x.requires_grad or is_dtensor(x):
         return torch.tanh(x / cap) * cap
     return (x / cap).tanh_().mul_(cap)
 
@@ -98,8 +120,8 @@ def rope(x, positions, theta):
     positions: (B, S) absolute positions.
     """
     half = x.shape[-1] // 2
-    freq = theta ** (-torch.arange(0, half, dtype=f32, device=x.device)
-                     / half)
+    freq = like(positions, theta ** (
+        -torch.arange(0, half, dtype=f32, device=x.device) / half))
     ang = positions[..., None].to(f32) * freq  # (B, S, half)
     extra = x.ndim - positions.ndim - 1  # head dims to broadcast over
     ang = ang.reshape(ang.shape[:-1] + (1,) * extra + (half,))
@@ -201,9 +223,51 @@ def cache_write(cache, new, pos):
     Slots must lie in [0, S): a slot >= S raises IndexError where the
     reference clamps, and ``model.decode_step`` checks the positions once
     per step, so no out-of-range index reaches a CUDA tensor.
+
+    On a DTensor cache (sharded on batch, and on its slot or head axis)
+    each rank writes its own shard: ``new`` and ``pos`` are brought to
+    the cache's placements (written out in ``_cache_write_local``).
     """
+    if is_dtensor(cache):
+        return _cache_write_local(cache, new, pos)
     rows = torch.arange(cache.shape[0], device=cache.device)
     cache[rows, pos.long()] = new.to(cache.dtype)
+    return cache
+
+
+def _cache_write_local(cache, new, pos):
+    """``cache_write`` on the local shard of DTensor ``cache``: ``new``
+    (one entry per sequence, the cache without its slot axis) takes the
+    cache's placements with the slot axis dropped, ``pos`` its batch
+    placements; a rank whose shard holds a slot axis range [lo, lo + n)
+    writes the entries whose slot falls in it and rewrites the others'
+    clamped slot with its own value (a select, no host sync)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = cache.device_mesh
+    cp = tuple(cache.placements)
+    new_p = tuple(Replicate() if p == Shard(1) else
+                  (Shard(p.dim - 1) if p.is_shard() and p.dim > 1 else p)
+                  for p in cp)
+    pos_p = tuple(p if p == Shard(0) else Replicate() for p in cp)
+    if not is_dtensor(new):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    if not is_dtensor(pos):
+        pos = DTensor.from_local(pos, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    loc = cache.to_local()
+    new_l = new.to(cache.dtype).redistribute(mesh, new_p).to_local()
+    pos_l = pos.redistribute(mesh, pos_p).to_local().long()
+    lo, n = shard_offset(cache, 1)
+    rows = torch.arange(loc.shape[0], device=loc.device)
+    if lo == 0 and n == cache.shape[1]:
+        loc[rows, pos_l] = new_l
+        return cache
+    slot = pos_l - lo
+    mine = (slot >= 0) & (slot < n)
+    slot = slot.clamp(0, n - 1)
+    keep = mine.reshape((-1,) + (1,) * (new_l.ndim - 1))
+    loc[rows, slot] = torch.where(keep, new_l, loc[rows, slot])
     return cache
 
 
@@ -215,8 +279,8 @@ def causal_conv1d(x, w, b, state=None):
     """
     W = w.shape[0]
     if state is None:
-        state = torch.zeros((x.shape[0], W - 1, x.shape[-1]),
-                            dtype=x.dtype, device=x.device)
+        state = like(x, torch.zeros((x.shape[0], W - 1, x.shape[-1]),
+                                    dtype=x.dtype, device=x.device))
     xp = torch.cat([state, x], dim=1)  # (B, S+W-1, D)
     y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(W))
     new_state = xp[:, -(W - 1):] if W > 1 else state
@@ -250,11 +314,13 @@ def _project_q(p, cfg, x):
     """q (B, S, K, G, hd): the query projection alone, as cross attention
     needs (its k and v come from the encoder)."""
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    B, S, _ = x.shape
+    S = x.shape[1]
     q = dot(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
-    q = q.reshape(B, S, K, H // K, hd)
+    if S > 1:
+        q = constrain(q, "batch", None, "heads")
+    q = split_last(q, K, H // K, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
     return q
@@ -262,15 +328,19 @@ def _project_q(p, cfg, x):
 
 def _project_qkv(p, cfg, x):
     K, hd = cfg.n_kv_heads, cfg.head_dim
-    B, S, _ = x.shape
+    S = x.shape[1]
+    q = _project_q(p, cfg, x)
     k, v = dot(x, p["wk"]), dot(x, p["wv"])
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
-    k = k.reshape(B, S, K, hd)
-    v = v.reshape(B, S, K, hd)
+    if S > 1:  # the reference's head-sharded attention layout
+        k = constrain(k, "batch", None, "kv_heads")
+        v = constrain(v, "batch", None, "kv_heads")
+    k = split_last(k, K, hd)
+    v = split_last(v, K, hd)
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    return _project_q(p, cfg, x), k, v
+    return q, k, v
 
 
 def attn_apply(p, cfg, x, positions, *, kind="attn_global", encoder_kv=None,
@@ -284,8 +354,7 @@ def attn_apply(p, cfg, x, positions, *, kind="attn_global", encoder_kv=None,
     decode cache of that many slots for attn_global and attn_local (a
     local cache holds at most ``cfg.window_size``).
     """
-    B, S, _ = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
+    S = x.shape[1]
     # the reference's chunk rule: above the threshold its attention runs
     # in query chunks; here those chunks bound the backward's scores
     chunk_q = cfg.attn_chunk_q if S > cfg.attn_chunk_threshold else 0
@@ -297,7 +366,7 @@ def attn_apply(p, cfg, x, positions, *, kind="attn_global", encoder_kv=None,
         # every (query, frame) pair is kept, so the kernel's positions
         # (indices from 0 on both sides) never matter: none are checked
         o = ops.attention_op(q, ek, ev, causal=False, chunk_q=chunk_q)
-        return dot(o.reshape(B, S, H * hd), p["wo"]), None
+        return dot(merge_last(o, 3), p["wo"]), None
     q, k, v = _project_qkv(p, cfg, x)
     causal = kind != "attn_bidir"
     window = cfg.window_size if kind == "attn_local" else None
@@ -307,7 +376,7 @@ def attn_apply(p, cfg, x, positions, *, kind="attn_global", encoder_kv=None,
     o = ops.attention_op(q, k, v, causal=causal, window=window,
                          softcap=cfg.attn_softcap, positions=positions,
                          chunk_q=chunk_q)
-    y = dot(o.reshape(B, S, H * hd), p["wo"])
+    y = dot(merge_last(o, 3), p["wo"])
 
     cache = None
     if make_cache and kind in ("attn_global", "attn_local"):
@@ -323,21 +392,40 @@ def attn_apply(p, cfg, x, positions, *, kind="attn_global", encoder_kv=None,
             cache = {}
             if cfg.kv_quant == "int8" and kind == "attn_global":
                 (kt, ks), (vt, vs) = kv_quantize(kt), kv_quantize(vt)
-                cache = {"k_scale": F.pad(ks, (0, 0, 0, pad)),
-                         "v_scale": F.pad(vs, (0, 0, 0, pad))}
-            cache.update(k=F.pad(kt, (0, 0, 0, 0, 0, pad)),
-                         v=F.pad(vt, (0, 0, 0, 0, 0, pad)),
-                         pos=F.pad(tail_pos, (0, pad), value=-1))
+                cache = {"k_scale": _pad_slots(ks, pad),
+                         "v_scale": _pad_slots(vs, pad)}
+            cache.update(k=_pad_slots(kt, pad), v=_pad_slots(vt, pad),
+                         pos=_pad_slots(tail_pos, pad, -1))
         else:
             # full local ring buffer: slot = position % slots, which for
             # the last `slots` positions is a cyclic roll of the tail
             # (attention_op checked positions == 0..S-1, so the tail's first
             # position is S - n: no device read)
             shift = (S - n) % slots
-            cache = {"k": torch.roll(kt, shift, dims=1),
-                     "v": torch.roll(vt, shift, dims=1),
-                     "pos": torch.roll(tail_pos, shift, dims=1)}
+            cache = {"k": _roll_slots(kt, shift),
+                     "v": _roll_slots(vt, shift),
+                     "pos": _roll_slots(tail_pos, shift)}
     return y, cache
+
+
+def _pad_slots(t, pad, value=0):
+    """``t`` (B, S, ...) with ``pad`` slots of ``value`` after its S (as
+    ``F.pad``; a concatenation, which DTensor places in every torch
+    version)."""
+    if not pad:
+        return t
+    fill = torch.full((t.shape[0], pad) + tuple(t.shape[2:]), value,
+                      dtype=t.dtype, device=t.device)
+    return torch.cat([t, like(t, fill)], dim=1)
+
+
+def _roll_slots(t, shift):
+    """``torch.roll(t, shift, dims=1)`` for 0 <= shift < t.shape[1], as
+    two slices (DTensor has no sharding rule for roll in every torch
+    version)."""
+    if not shift:
+        return t
+    return torch.cat([t[:, -shift:], t[:, :-shift]], dim=1)
 
 
 def kv_quantize(t):
@@ -384,7 +472,6 @@ def attn_decode(p, cfg, x, positions, cache, *, kind="attn_global",
     leaves ``cache`` as it is.
     """
     B = x.shape[0]
-    H, hd = cfg.n_heads, cfg.head_dim
     if kind == "attn_cross":
         ek, ev = encoder_kv
         q = _project_q(p, cfg, x)
@@ -395,7 +482,7 @@ def attn_decode(p, cfg, x, positions, cache, *, kind="attn_global",
         # frames' own indices 0..T-1 would drop those past the position)
         kv_pos = positions.new_zeros((B, ek.shape[1]))
         o = ops.decode_attention_op(q, ek, ev, positions, kv_pos)
-        return dot(o.reshape(B, 1, H * hd), p["wo"]), cache
+        return dot(merge_last(o, 3), p["wo"]), cache
     q, k, v = _project_qkv(p, cfg, x)
     if cfg.use_rope:
         q = rope(q, positions[:, None], cfg.rope_theta)
@@ -413,13 +500,13 @@ def attn_decode(p, cfg, x, positions, cache, *, kind="attn_global",
         o = _attn_decode_quant(q, cache, window=window,
                                softcap_val=cfg.attn_softcap,
                                q_positions=positions[:, None])
-        return dot(o.reshape(B, 1, H * hd), p["wo"]), cache
+        return dot(merge_last(o, 3), p["wo"]), cache
     cache_write(cache["k"], k[:, 0], slot)
     cache_write(cache["v"], v[:, 0], slot)
     o = ops.decode_attention_op(q, cache["k"], cache["v"], positions,
                                 cache["pos"], window=window,
                                 softcap=cfg.attn_softcap)
-    return dot(o.reshape(B, 1, H * hd), p["wo"]), cache
+    return dot(merge_last(o, 3), p["wo"]), cache
 
 
 # --------------------------------------------------------------------------
@@ -435,10 +522,12 @@ def mlp_template(cfg: ArchConfig):
 
 
 def mlp_apply(p, x):
-    gu = dot(x, p["wi"])
+    # the hidden pinned to ff (model) sharding, as the reference's
+    gu = constrain(dot(x, p["wi"]), "batch", None, "ff")
     g, u = gu.chunk(2, dim=-1)
     # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(g.to(f32), approximate="tanh").to(x.dtype) * u
+    h = constrain(F.gelu(g.to(f32), approximate="tanh").to(x.dtype) * u,
+                  "batch", None, "ff")
     return dot(h, p["wo"])
 
 
@@ -482,10 +571,10 @@ def moe_route(p, cfg, xg):
     top_p, top_e = torch.topk(probs, k, dim=-1)
     top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
     cap = max(int(e.capacity_factor * gs * k / E), 1)
-    flat = top_e.reshape(G, 1, gs * k)
-    onehot = (flat == torch.arange(E, device=xg.device)[:, None]).to(
-        torch.int32)  # (G, E, gs*k)
-    before = onehot.flatten().cumsum(0, dtype=torch.int32).view(
+    flat = merge_last(top_e, 2)[:, None]  # (G, 1, gs*k)
+    experts = like(flat, torch.arange(E, device=xg.device)[:, None])
+    onehot = (flat == experts).to(torch.int32)  # (G, E, gs*k)
+    before = merge_last(onehot, 3).cumsum(0, dtype=torch.int32).view(
         onehot.shape) - onehot  # exclusive, over all rows so far
     before = before - before[..., :1]  # from each row's own start
     pos = before.gather(1, flat).reshape(G, gs, k)
@@ -522,19 +611,23 @@ def moe_apply(p, cfg, x, group_size=None):
     N, E, k = B * S, e.n_experts, e.top_k
     gs = min(group_size or cfg.moe_group, N)
     G = N // gs
+    x = flat_rows(x)
     xg = x.reshape(G, gs, D)
     probs, top_p, top_e, pos, cap, counts = moe_route(p, cfg, xg)
 
     # flat (e, g, c) slot of each (token, k); dropped ones go to a spare
     # row past the E*G*C buffer
-    grp = torch.arange(G, device=x.device)[:, None, None]
+    grp = like(x, torch.arange(G, device=x.device)[:, None, None])
     keep = pos < cap
     slot = torch.where(keep, (top_e * G + grp) * cap + pos, E * G * cap)
     slot = slot.reshape(N * k)
-    tok = torch.arange(N * k, device=x.device) // k
+    tok = like(x, torch.arange(N * k, device=x.device) // k)
     buf = x.new_zeros((E * G * cap + 1, D))
     buf[slot] = x.reshape(N, D)[tok]
-    xin = buf[:-1].view(E, G * cap, D)
+    # the dispatched rows: experts over the EP axis, token groups over DP
+    # (the reference's constraint on its one-hot dispatch's output)
+    xin = constrain(buf[:-1].view(E, G, cap, D), "experts", "batch", None,
+                    "embed").reshape(E, G * cap, D)
 
     gu = torch.matmul(xin, p["wi"])  # x.dtype, fp32 accumulation
     g, u = gu.chunk(2, dim=-1)
@@ -578,9 +671,9 @@ _RGLRU_C = 8.0  # Griffin's fixed decay temperature
 def _rglru_coeffs(p, u):
     """Gates and log-decay for RG-LRU.  u: (B, S, R) post-conv input.
     Returns (a, gated), both fp32."""
-    u32 = u.to(f32)
-    r = torch.sigmoid(torch.matmul(u32, p["w_a"].to(f32)))
-    i = torch.sigmoid(torch.matmul(u32, p["w_i"].to(f32)))
+    u32 = flat_rows(u.to(f32))
+    r = torch.sigmoid(rows_out(torch.matmul(u32, p["w_a"].to(f32))))
+    i = torch.sigmoid(rows_out(torch.matmul(u32, p["w_i"].to(f32))))
     lam = p["lam"].to(f32)
     # jax.nn.softplus is logaddexp(x, 0) (torch's softplus turns linear
     # above a threshold)
@@ -649,24 +742,31 @@ def mlstm_template(cfg: ArchConfig):
     }
 
 
+def _step_inputs(a):
+    """An xLSTM step's inputs (B, S, heads, ...) as the step reads them:
+    on a DTensor with no time axis or head axis sharded (the loop reads
+    one time step a step; the per-head products run batch-sharded
+    only)."""
+    return gather_dim(gather_dim(a, 1), 2)
+
+
 def _mlstm_gates(p, x):
     """Input-gate and forget-gate logs (B, S, nh), fp32."""
-    x32 = x.to(f32)
-    i_log = torch.matmul(x32, p["wi"].to(f32))
-    f_log = F.logsigmoid(torch.matmul(x32, p["wf"].to(f32))
-                         + p["bf"].to(f32))
+    x32 = flat_rows(x.to(f32))
+    i_log = rows_out(torch.matmul(x32, p["wi"].to(f32)))
+    f_log = log_sigmoid(rows_out(torch.matmul(x32, p["wf"].to(f32)))
+                        + p["bf"].to(f32))
     return i_log, f_log
 
 
 def _mlstm_proj(p, cfg, x):
     """q, k, v and the output gate (B, S, nh, dh) fp32, and the gate
     logs (B, S, nh)."""
-    B, S, D = x.shape
     nh, dh = _xlstm_heads(cfg)
-    q = dot(x, p["wq"]).reshape(B, S, nh, dh).to(f32) * dh ** -0.5
-    k = dot(x, p["wk"]).reshape(B, S, nh, dh).to(f32) * dh ** -0.5
-    v = dot(x, p["wv"]).reshape(B, S, nh, dh).to(f32)
-    og = torch.sigmoid(dot(x, p["wg"]).to(f32)).reshape(B, S, nh, dh)
+    q = split_last(dot(x, p["wq"]), nh, dh).to(f32) * dh ** -0.5
+    k = split_last(dot(x, p["wk"]), nh, dh).to(f32) * dh ** -0.5
+    v = split_last(dot(x, p["wv"]), nh, dh).to(f32)
+    og = split_last(torch.sigmoid(dot(x, p["wg"]).to(f32)), nh, dh)
     return (q, k, v, og) + _mlstm_gates(p, x)
 
 
@@ -692,17 +792,14 @@ def mlstm_apply(p, cfg, x, *, make_cache=False):
     State per head: C (dh, dh) matrix memory, n (dh,) normalizer, m scalar
     stabilizer.  h_t = o_t * (C_t q_t / max(|n_t.q_t|, exp(-m_t))).
     """
-    B, S, D = x.shape
+    B, S, _ = x.shape
     nh, dh = _xlstm_heads(cfg)
-    proj = _mlstm_proj(p, cfg, x)
-    state = (torch.zeros((B, nh, dh, dh), dtype=f32, device=x.device),
-             torch.zeros((B, nh, dh), dtype=f32, device=x.device),
-             torch.zeros((B, nh), dtype=f32, device=x.device))
-    hs = []
-    for t in range(S):
-        state, h = _mlstm_step(state, *(a[:, t] for a in proj))
-        hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
+    proj = tuple(_step_inputs(a) for a in _mlstm_proj(p, cfg, x))
+    state = tuple(like(x, torch.zeros(shape, dtype=f32, device=x.device))
+                  for shape in ((B, nh, dh, dh), (B, nh, dh), (B, nh)))
+    state, hs = time_loop(
+        lambda st, t: _mlstm_step(st, *(a[:, t] for a in proj)), state, S)
+    h = merge_last(hs, 2).to(x.dtype)
     cache = dict(zip(_MLSTM_STATE, state)) if make_cache else None
     return dot(h, p["wo"]), cache
 
@@ -710,10 +807,10 @@ def mlstm_apply(p, cfg, x, *, make_cache=False):
 def mlstm_decode(p, cfg, x, cache):
     """One mLSTM step.  x: (B, 1, D).  Returns (y, new state): the state
     is replaced, not updated in place."""
-    B, _, D = x.shape
     state, h = _mlstm_step(tuple(cache[k] for k in _MLSTM_STATE),
-                           *(a[:, 0] for a in _mlstm_proj(p, cfg, x)))
-    y = dot(h.reshape(B, 1, D).to(x.dtype), p["wo"])
+                           *(_step_inputs(a)[:, 0]
+                             for a in _mlstm_proj(p, cfg, x)))
+    y = dot(merge_last(h, 2)[:, None].to(x.dtype), p["wo"])
     return y, dict(zip(_MLSTM_STATE, state))
 
 
@@ -732,9 +829,8 @@ def slstm_template(cfg: ArchConfig):
 def _slstm_pre(p, cfg, x):
     """The four gates' input parts (B, S, nh, dh) fp32 and their
     block-diagonal recurrent weights stacked by gate (nh, 4*dh, dh)."""
-    B, S, D = x.shape
     nh, dh = _xlstm_heads(cfg)
-    pre = [(dot(x, p[f"w{g}"]) + p[f"b{g}"]).to(f32).reshape(B, S, nh, dh)
+    pre = [split_last((dot(x, p[f"w{g}"]) + p[f"b{g}"]).to(f32), nh, dh)
            for g in _SLSTM_GATES]
     R = torch.cat([p[f"r{g}"].to(f32) for g in _SLSTM_GATES], dim=1)
     return pre, R
@@ -746,7 +842,7 @@ def _slstm_step(state, R, xi, xf, xz, xo):
     c, n, h, m = state
     ri, rf, rz, ro = torch.einsum("bhj,hij->bhi", h, R).chunk(4, dim=-1)
     il = xi + ri
-    fl = F.logsigmoid(xf + rf)
+    fl = log_sigmoid(xf + rf)
     m_new = torch.maximum(fl + m, il)
     i_ = torch.exp(il - m_new)
     f_ = torch.exp(fl + m - m_new)
@@ -760,25 +856,25 @@ def _slstm_step(state, R, xi, xf, xz, xo):
 def slstm_apply(p, cfg, x, *, make_cache=False):
     """Stabilized sLSTM with block-diagonal recurrence, a sequential loop
     over time (fp32 state)."""
-    B, S, D = x.shape
+    B, S, _ = x.shape
     nh, dh = _xlstm_heads(cfg)
     pre, R = _slstm_pre(p, cfg, x)
-    zeros = torch.zeros((B, nh, dh), dtype=f32, device=x.device)
+    pre = [_step_inputs(a) for a in pre]
+    zeros = like(x, torch.zeros((B, nh, dh), dtype=f32, device=x.device))
     state = (zeros, zeros + 1e-6, zeros, zeros)
-    hs = []
-    for t in range(S):
-        state = _slstm_step(state, R, *(a[:, t] for a in pre))
-        hs.append(state[2])
-    h = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
+    def step(st, t):
+        st = _slstm_step(st, R, *(a[:, t] for a in pre))
+        return st, st[2]
+    state, hs = time_loop(step, state, S)
+    h = merge_last(hs, 2).to(x.dtype)
     cache = dict(zip(_SLSTM_STATE, state)) if make_cache else None
     return dot(h, p["wo_out"]), cache
 
 
 def slstm_decode(p, cfg, x, cache):
     """One sLSTM step.  x: (B, 1, D).  Returns (y, new state)."""
-    B, _, D = x.shape
     pre, R = _slstm_pre(p, cfg, x)
     state = _slstm_step(tuple(cache[k] for k in _SLSTM_STATE), R,
-                        *(a[:, 0] for a in pre))
-    y = dot(state[2].reshape(B, 1, D).to(x.dtype), p["wo_out"])
+                        *(_step_inputs(a)[:, 0] for a in pre))
+    y = dot(merge_last(state[2], 2)[:, None].to(x.dtype), p["wo_out"])
     return y, dict(zip(_SLSTM_STATE, state))

@@ -46,6 +46,12 @@ Public surface:
   prefill(cfg, params, tokens, ...)   -> (logits, caches, aux); with
                                          ``caches=`` it writes into them
   decode_step(cfg, params, token, pos, caches) -> (logits, caches)
+  logical_axes(cfg)       -> the parameters' logical-axis tuples
+
+Under a ``DeviceMesh`` (``partition.use_mesh``, parameters and caches as
+DTensors) each layer's carry is constrained as in the reference
+(``constrain(x, "batch", "seq", "embed")`` at the top of each period and
+encoder block); without one ``constrain`` is the identity.
 """
 
 from __future__ import annotations
@@ -56,9 +62,13 @@ from typing import Any
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.kernels._build import is_dtensor
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import ParamSpec
+from repro_torch.models.partition import (constrain, flat_rows, full, like,
+                                          lookup, rows_out, split_last,
+                                          to_placements)
 
 f32 = torch.float32
 
@@ -169,6 +179,14 @@ def model_template(cfg: ArchConfig):
     return t
 
 
+def logical_axes(cfg: ArchConfig):
+    """Tree (mirroring the parameters) of logical-axis tuples."""
+    def walk(t):
+        return {k: walk(v) if isinstance(v, dict) else v.axes
+                for k, v in t.items()}
+    return walk(model_template(cfg))
+
+
 def _leaves(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -224,15 +242,16 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 # --------------------------------------------------------------------------
 
 def _block_cache(cfg: ArchConfig, kind: str, n: int, B: int,
-                 cache_len: int, device):
-    """The decode state of ``n`` stacked blocks of ``kind``: k, v and
-    slot positions of an attention block (int8 k and v with fp32 scales
-    on a global block under ``kv_quant="int8"``), fp32 recurrent state
-    of a recurrent one."""
+                 cache_len: int):
+    """The decode state of ``n`` stacked blocks of ``kind``, as {name:
+    (shape, dtype, fill)}: k, v and slot positions (-1: empty) of an
+    attention block (int8 k and v with fp32 scales on a global block
+    under ``kv_quant="int8"``), fp32 recurrent state of a recurrent
+    one."""
     K, hd, dt = cfg.n_kv_heads, cfg.head_dim, cfg.tdtype
 
-    def zeros(*shape, dtype=f32):
-        return torch.zeros((n, B) + shape, dtype=dtype, device=device)
+    def zeros(*shape, dtype=f32, fill=0):
+        return (n, B) + shape, dtype, fill
     if kind == "rglru":
         R = cfg.rglru_dim or cfg.d_model
         return {"h": zeros(R), "conv": zeros(cfg.conv_width - 1, R,
@@ -242,14 +261,14 @@ def _block_cache(cfg: ArchConfig, kind: str, n: int, B: int,
         if kind == "mlstm":
             return {"C": zeros(nh, dh, dh), "n": zeros(nh, dh),
                     "m": zeros(nh)}
-        return {"c": zeros(nh, dh), "n": zeros(nh, dh).fill_(1e-6),
+        return {"c": zeros(nh, dh), "n": zeros(nh, dh, fill=1e-6),
                 "h": zeros(nh, dh), "m": zeros(nh, dh)}
     S = cache_len if kind == "attn_global" else min(cfg.window_size,
                                                     cache_len)
     quant = cfg.kv_quant == "int8" and kind == "attn_global"
     kv_dt = torch.int8 if quant else dt
     c = {"k": zeros(S, K, hd, dtype=kv_dt), "v": zeros(S, K, hd, dtype=kv_dt),
-         "pos": zeros(S, dtype=torch.int32).fill_(-1)}
+         "pos": zeros(S, dtype=torch.int32, fill=-1)}
     if quant:
         c["k_scale"] = zeros(S, K)
         c["v_scale"] = zeros(S, K)
@@ -259,11 +278,34 @@ def _block_cache(cfg: ArchConfig, kind: str, n: int, B: int,
     return c
 
 
-def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device="cuda"):
-    return {group: {f"pos{i}": _block_cache(cfg, kind, n, batch, cache_len,
-                                            device)
+def cache_layout(cfg: ArchConfig, batch: int, cache_len: int):
+    """``init_cache``'s tree with (shape, dtype, fill) leaves: what it
+    holds, with nothing allocated."""
+    return {group: {f"pos{i}": _block_cache(cfg, kind, n, batch, cache_len)
                     for i, kind in enumerate(pattern)}
             for group, pattern, n in _groups(cfg)}
+
+
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device="cuda",
+               mesh=None):
+    """The stacked decode caches, filled as ``cache_layout`` says.  With
+    ``mesh`` (a ``DeviceMesh``), DTensors placed by the sharding rules
+    (``cache_pspecs``), each rank allocating its own shard only (local
+    tensors on ``device``)."""
+    if mesh is not None:
+        from repro_torch.distributed.sharding import cache_pspecs
+        specs = dict(_leaves(cache_pspecs(cfg, mesh, batch, cache_len)))
+
+    def build(name, shape, dtype, fill):
+        if mesh is None:
+            return torch.full(shape, fill, dtype=dtype, device=device)
+        return full(shape, fill, dtype, device, mesh,
+                    to_placements(specs[name], mesh))
+
+    def walk(t, prefix=""):
+        return {k: (walk(v, f"{prefix}{k}/") if isinstance(v, dict) else
+                    build(prefix + k, *v)) for k, v in t.items()}
+    return walk(cache_layout(cfg, batch, cache_len))
 
 
 # --------------------------------------------------------------------------
@@ -302,13 +344,12 @@ def _apply_block(p, cfg, kind, x, positions, *, cache=None, decode=False,
                                  kind="attn_cross", encoder_kv=(
                                      cache["cross_k"], cache["cross_v"]))
         else:
-            B, T, _ = enc_out.shape
             K, hd = cfg.n_kv_heads, cfg.head_dim
-            ek = L.dot(enc_out, p["cross"]["wk"]).reshape(B, T, K, hd)
-            ev = L.dot(enc_out, p["cross"]["wv"]).reshape(B, T, K, hd)
+            ek = split_last(L.dot(enc_out, p["cross"]["wk"]), K, hd)
+            ev = split_last(L.dot(enc_out, p["cross"]["wv"]), K, hd)
             if cfg.qkv_bias:
-                ek = ek + p["cross"]["bk"].reshape(K, hd)
-                ev = ev + p["cross"]["bv"].reshape(K, hd)
+                ek = ek + split_last(p["cross"]["bk"], K, hd)
+                ev = ev + split_last(p["cross"]["bv"], K, hd)
             y, _ = L.attn_apply(p["cross"], cfg, h, positions,
                                 kind="attn_cross", encoder_kv=(ek, ev))
             if make_cache:
@@ -327,12 +368,31 @@ def _apply_block(p, cfg, kind, x, positions, *, cache=None, decode=False,
     return x, cache, aux
 
 
-def _zero_aux(cfg, device):
+def _constrain_tree(tree, tmpl):
+    return {k: (_constrain_tree(v, tmpl[k]) if isinstance(v, dict) else
+                constrain(v, *tmpl[k].axes)) for k, v in tree.items()}
+
+
+def constrain_like_params(cfg: ArchConfig, tree):
+    """Pin a params-shaped tree (grads, fp32 accumulators) to the
+    parameters' logical sharding; the identity outside a mesh (the
+    reference's, which its step does not call either)."""
+    return _constrain_tree(tree, model_template(cfg))
+
+
+def _constrain_block_params(cfg, kind, p):
+    """Pin one block's parameters to their logical sharding (the
+    reference's; called nowhere there either)."""
+    return _constrain_tree(p, block_template(cfg, kind))
+
+
+def _zero_aux(cfg, x):
     if cfg.moe is None:
         return {}
-    return {"expert_load": torch.zeros((cfg.moe.n_experts,), dtype=f32,
-                                       device=device),
-            "moe_aux_loss": torch.zeros((), dtype=f32, device=device)}
+    return {"expert_load": like(x, torch.zeros(
+                (cfg.moe.n_experts,), dtype=f32, device=x.device)),
+            "moe_aux_loss": like(x, torch.zeros((), dtype=f32,
+                                                device=x.device))}
 
 
 def _run_layers(cfg, params_l, x, positions, *, caches=None, decode=False,
@@ -354,14 +414,16 @@ def _run_layers(cfg, params_l, x, positions, *, caches=None, decode=False,
     over the layers).
     """
     if make_cache:
-        caches = init_cache(cfg, x.shape[0], make_cache, x.device) \
-            if out_caches is None else out_caches
-    aux_tot = _zero_aux(cfg, x.device)
+        caches = _new_cache(cfg, x, make_cache) if out_caches is None \
+            else out_caches
+    aux_tot = _zero_aux(cfg, x)
     block = _checkpointed(_apply_block) if remat else _apply_block
     for group, pattern, n in _groups(cfg):
         layers = [_unstack(params_l[group][f"pos{i}"], n)
                   for i in range(len(pattern))]
         for t in range(n):
+            if not (decode and cfg.scan_layers):  # as the reference's
+                x = constrain(x, "batch", "seq", "embed")
             for i, kind in enumerate(pattern):
                 p_t = layers[i][t]
                 c_t = _index(caches[group][f"pos{i}"], t) if caches \
@@ -376,6 +438,13 @@ def _run_layers(cfg, params_l, x, positions, *, caches=None, decode=False,
                         if val is not c_t[key]:  # written in place already
                             c_t[key].copy_(val)
     return x, (caches if (decode or make_cache) else None), aux_tot
+
+
+def _new_cache(cfg, x, cache_len):
+    """A fresh stacked cache for a prefill of ``x``; on a DTensor, placed
+    by the sharding rules on ``x``'s mesh."""
+    return init_cache(cfg, x.shape[0], cache_len, x.device,
+                      mesh=x.device_mesh if is_dtensor(x) else None)
 
 
 def _index(tree, t):
@@ -423,10 +492,11 @@ def run_encoder(cfg: ArchConfig, params, frames, *, remat=False):
     in the model dtype.  ``remat`` checkpoints each block."""
     x = frames.to(cfg.tdtype)
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    positions = _positions(x, B, S)
     enc = params["encoder"]
     block = _checkpointed(_encoder_block) if remat else _encoder_block
     for p in _unstack(enc["scan"]["pos0"], cfg.encoder_layers):
+        x = constrain(x, "batch", "seq", "embed")
         x = block(p, cfg, x, positions)
     return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
@@ -435,13 +505,24 @@ def run_encoder(cfg: ArchConfig, params, frames, *, remat=False):
 # model entry points
 # --------------------------------------------------------------------------
 
+def _positions(x, B, S):
+    """Positions 0..S-1 of every row, (B, S), beside ``x``."""
+    return like(x, torch.arange(S, device=x.device).expand(B, S))
+
+
 def _check_range(idx, n, what):
     """Fail on an index outside [0, n) (the reference clamps).  A CPU
     tensor is checked on the host (IndexError); on the card the check
     stays there (``torch._assert_async``), so a decode step adds no host
     sync and can be captured in a CUDA graph, and a bad index still fails
-    loudly, at the next sync, as a device-side assert."""
+    loudly, at the next sync, as a device-side assert.  A DTensor's
+    local shard is checked (each rank checks its own); a meta tensor has
+    no values to check."""
     msg = f"{what} out of range [0, {n})"
+    if is_dtensor(idx):
+        idx = idx.to_local()
+    if idx.device.type == "meta":
+        return
     if idx.device.type == "cpu":
         if bool(((idx < 0) | (idx >= n)).any()):
             raise IndexError(msg)
@@ -451,16 +532,16 @@ def _check_range(idx, n, what):
 
 def embed_tokens(cfg, params, tokens):
     _check_range(tokens, cfg.vocab, "token id")
-    x = params["embed"][tokens]
+    x = lookup(params["embed"], tokens)
     if cfg.scale_embed:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+        x = x * like(x, torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
     return x
 
 
 def _head(cfg, params, h):
     """fp32 logits, as the reference's preferred_element_type=f32."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.matmul(h.to(f32), w.to(f32))
+    logits = rows_out(torch.matmul(flat_rows(h.to(f32)), w.to(f32)))
     return L.softcap(logits, cfg.final_softcap)
 
 
@@ -469,8 +550,8 @@ def _add_pos_embed(cfg, params, x, positions):
     clamped to its last row (as the reference does)."""
     if not cfg.learned_pos_embed:
         return x
-    return x + params["pos_embed"][
-        positions.clamp(max=cfg.learned_pos_embed - 1)]
+    return x + lookup(params["pos_embed"],
+                      positions.clamp(max=cfg.learned_pos_embed - 1))
 
 
 def forward(cfg: ArchConfig, params, tokens, *, patch_embeds=None,
@@ -490,13 +571,14 @@ def forward(cfg: ArchConfig, params, tokens, *, patch_embeds=None,
         vis = L.dot(patch_embeds.to(x.dtype), params["vision_proj"])
         x = torch.cat([vis, x], dim=1)
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    positions = _positions(x, B, S)
     x = _add_pos_embed(cfg, params, x, positions)
     enc_out = None
     if cfg.encoder_layers:
         if enc_frames is None:
-            enc_frames = torch.zeros((B, cfg.encoder_seq, cfg.d_model),
-                                     dtype=x.dtype, device=x.device)
+            enc_frames = like(x, torch.zeros(
+                (B, cfg.encoder_seq, cfg.d_model), dtype=x.dtype,
+                device=x.device))
         enc_out = run_encoder(cfg, params, enc_frames, remat=remat)
     x, caches, aux = _run_layers(cfg, params["layers"], x, positions,
                                  make_cache=make_cache, enc_out=enc_out,
@@ -529,7 +611,10 @@ def loss_fn(cfg: ArchConfig, params, batch):
     B, S, _ = h.shape
 
     def ce(h_chunk, l_chunk):
-        logits = _head(cfg, params, h_chunk)  # (B, s, V) fp32
+        # (B, s, V) fp32; under a mesh off the vocab axis, so the
+        # logsumexp and the target's gather are local
+        logits = constrain(_head(cfg, params, h_chunk), "batch", "seq",
+                           None)
         lse = torch.logsumexp(logits, dim=-1)
         tgt = logits.gather(-1, l_chunk.clamp_min(0).long()[..., None])
         mask = (l_chunk >= 0).to(f32)
@@ -577,14 +662,14 @@ def prefill(cfg: ArchConfig, params, tokens, *, cache_len=None,
 
 def _check_cache_tree(cfg, caches, batch, cache_len):
     """Raise ValueError unless ``caches`` has ``init_cache``'s leaves,
-    shapes and types (checked against a meta-device tree: nothing is
+    shapes and types (checked against ``cache_layout``: nothing is
     allocated)."""
-    want = dict(_leaves(init_cache(cfg, batch, cache_len, "meta")))
+    want = dict(_leaves(cache_layout(cfg, batch, cache_len)))
     got = dict(_leaves(caches))
     bad = sorted(k for k in want.keys() | got.keys()
                  if k not in want or k not in got
-                 or got[k].shape != want[k].shape
-                 or got[k].dtype != want[k].dtype)
+                 or tuple(got[k].shape) != want[k][0]
+                 or got[k].dtype != want[k][1])
     if bad:
         raise ValueError(f"prefill: the given caches differ from "
                          f"init_cache(cfg, {batch}, {cache_len}) at {bad}")

@@ -13,8 +13,9 @@ which numpy alone loads as 2-byte void) is read as its raw 16-bit
 words.  Atomicity: writes go to ``<dir>.tmp`` and are renamed on
 completion, so a crash mid-save never corrupts the latest checkpoint;
 ``latest_step`` only sees committed directories.  Restore places each
-leaf on its target's device; re-sharding across devices waits for the
-port's sharding layer.
+leaf on its target's device and, given ``shardings`` and a mesh, makes
+it a DTensor under them: the reference's elastic re-shard (arrays saved
+under any mesh, or none, re-placed under the current one).
 """
 
 from __future__ import annotations
@@ -93,9 +94,21 @@ def _from_numpy(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore_checkpoint(ckpt_dir: str | Path, step: int, target_tree):
+def restore_checkpoint(ckpt_dir: str | Path, step: int, target_tree,
+                       shardings=None, mesh=None):
     """Restore into the structure of ``target_tree``: each leaf in its
-    target's dtype and on its target's device.  Returns (tree, meta)."""
+    target's dtype and on its target's (local) device.  Returns (tree,
+    meta).
+
+    ``shardings``: a tree of the target's structure holding placement
+    tuples or ``P`` specs (``param_shardings``, ``param_pspecs``,
+    ``opt_pspecs``, ...), with ``mesh`` the ``DeviceMesh`` they refer
+    to: each leaf is then a DTensor placed by them (every rank reads the
+    whole array and keeps its shard).
+    """
+    if (shardings is None) != (mesh is None):
+        raise ValueError("restore_checkpoint: shardings and mesh go "
+                         "together")
     path = Path(ckpt_dir) / f"step_{step:08d}"
     meta = json.loads((path / "meta.json").read_text())
     leaves = tree_leaves(target_tree)
@@ -109,4 +122,8 @@ def restore_checkpoint(ckpt_dir: str | Path, step: int, target_tree):
             raise ValueError(f"leaf {i}: saved {tuple(t.shape)} != target "
                              f"{tuple(ref.shape)}")
         out.append(t.to(device=ref.device, dtype=ref.dtype))
-    return tree_unflatten(target_tree, out), meta
+    tree = tree_unflatten(target_tree, out)
+    if shardings is not None:
+        from repro_torch.distributed.sharding import distribute_tree
+        tree = distribute_tree(tree, shardings, mesh)
+    return tree, meta

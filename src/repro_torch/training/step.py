@@ -17,8 +17,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels._build import is_dtensor
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import decode_step, loss_fn, prefill
+from repro_torch.models.partition import constrain
 from repro_torch.training.adamw import AdamWState, adamw_update, global_norm
 from repro_torch.training.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -52,10 +54,10 @@ def make_train_step(cfg: ArchConfig, *, lr=3e-4, accum_steps: int = 1,
         if accum_steps == 1:
             grads, metrics = grads_of(params, batch)
         else:
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=f32,
-                                                   device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=f32),
+                             params)
             for i in range(accum_steps):
-                micro = {k: v.reshape((accum_steps, -1) + v.shape[1:])[i]
+                micro = {k: _microbatch(v, accum_steps, i)
                          for k, v in batch.items()}
                 g, metrics = grads_of(params, micro)
                 tree_map(lambda a, gg: a.add_(gg.to(f32)), grads, g)
@@ -71,12 +73,23 @@ def make_train_step(cfg: ArchConfig, *, lr=3e-4, accum_steps: int = 1,
     return train_step
 
 
+def _microbatch(v, n, i):
+    """The i-th of ``n`` microbatches of ``v`` (split on its leading
+    dim): rows i*B/n .. (i+1)*B/n - 1; on a DTensor, rows i, i + n, ...,
+    so that a batch sharded over ranks splits on each rank's own rows
+    (the sum of the microbatches' grads is the same)."""
+    if is_dtensor(v):
+        return v.reshape((-1, n) + v.shape[1:])[:, i]
+    return v.reshape((n, -1) + v.shape[1:])[i]
+
+
 def make_serve_steps(cfg: ArchConfig, cache_len: Optional[int] = None):
     """(prefill_fn, decode_fn) for serving.
 
     prefill_fn(params, batch)  -> (next_token, caches)
     decode_fn(params, token, pos, caches) -> (next_token, logits, caches)
-    (the caches updated in place).
+    (the caches updated in place).  Under a mesh the logits are sharded
+    on batch alone, as the reference's ``out_shardings``.
     """
 
     @torch.no_grad()
@@ -85,11 +98,13 @@ def make_serve_steps(cfg: ArchConfig, cache_len: Optional[int] = None):
             cfg, params, batch["tokens"], cache_len=cache_len,
             patch_embeds=batch.get("patch_embeds"),
             enc_frames=batch.get("enc_frames"))
+        logits = constrain(logits, "batch", None)
         return logits.argmax(-1).to(torch.int32), caches
 
     @torch.no_grad()
     def decode_fn(params, token, pos, caches):
         logits, caches = decode_step(cfg, params, token, pos, caches)
+        logits = constrain(logits, "batch", None)
         nxt = logits.argmax(-1).to(torch.int32)
         return nxt[:, None], logits, caches
 

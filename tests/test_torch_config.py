@@ -70,6 +70,10 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.training.data, repro_torch.training.fault\n"
         "import repro_torch.launch.train\n"
         "import repro_torch.examples.train_100m\n"
+        "import repro_torch.distributed, repro_torch.distributed.sharding\n"
+        "import repro_torch.models.inputs, repro_torch.models.partition\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
+        "import repro_torch.kernels.loops\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"

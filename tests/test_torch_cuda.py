@@ -800,3 +800,159 @@ def test_train_step_cuda_matches_cpu(cuda, arch):
             b = params_c[name]
             err = (a.cpu() - b).abs().max().item()
             assert err <= rtol * b.abs().max().item() + 2e-5, name
+
+
+# ------------------------------------------------ DTensors on one card
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A (1, 1) ("data", "model") mesh over a one-rank NCCL group."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield make_debug_mesh((1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dt(t, mesh, *placements):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, mesh, placements, run_check=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_on_local_shards_match_plain_tensors(nccl_mesh, dtype):
+    """``ops`` on CUDA DTensors launches each kernel once, on the local
+    shards, and gives what the kernel gives on plain tensors, bit for
+    bit."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(5)
+    mesh, dev = nccl_mesh, torch.device("cuda")
+    B, S, K, G, hd, T = 2, 64, 2, 2, 128, 96
+    q = _rand(rng, (B, S, K, G, hd), dtype, dev)
+    k = _rand(rng, (B, S, K, hd), dtype, dev)
+    v = _rand(rng, (B, S, K, hd), dtype, dev)
+    pos = torch.arange(S, device=dev).expand(B, S)
+    flash_attention.launches = decode_attention.launches = 0
+    rglru_scan.launches = 0
+    want = ops.attention_op(q, k, v, positions=pos)
+    got = ops.attention_op(_dt(q, mesh, Shard(0), Shard(2)),
+                           _dt(k, mesh, Shard(0), Replicate()),
+                           _dt(v, mesh, Shard(0), Replicate()),
+                           positions=_dt(pos, mesh, Shard(0), Replicate()))
+    assert torch.equal(got.to_local(), want)
+    assert flash_attention.launches == 2
+    qd = _rand(rng, (B, 1, K, G, hd), dtype, dev)
+    kc = _rand(rng, (B, T, K, hd), dtype, dev)
+    vc = _rand(rng, (B, T, K, hd), dtype, dev)
+    qp = torch.tensor([70, 95], dtype=torch.int32, device=dev)
+    kvp = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+    want = ops.decode_attention_op(qd, kc, vc, qp, kvp)
+    got = ops.decode_attention_op(
+        _dt(qd, mesh, Shard(0), Shard(2)), _dt(kc, mesh, Shard(0), Shard(1)),
+        _dt(vc, mesh, Shard(0), Shard(1)), _dt(qp, mesh, Shard(0),
+                                               Replicate()),
+        _dt(kvp, mesh, Shard(0), Replicate()))
+    assert torch.equal(got.to_local(), want)
+    assert decode_attention.launches == 2
+    a = torch.rand((B, S, 256), device=dev).to(dtype)
+    b = _rand(rng, (B, S, 256), dtype, dev)
+    want = ops.rglru_op(a, b)
+    got = ops.rglru_op(_dt(a, mesh, Shard(0), Shard(2)),
+                       _dt(b, mesh, Shard(0), Replicate()))
+    assert torch.equal(got.to_local(), want)
+    assert rglru_scan.launches == 2
+
+
+def test_cuda_dtensor_never_reaches_a_wrapper_whole(nccl_mesh):
+    """The raw wrappers refuse a CUDA DTensor (the kernel would read its
+    data pointer, not a shard's); a meshed reduced decode step runs
+    through ``ops``, which hands them local shards."""
+    from torch.distributed.tensor import Replicate
+    from repro_torch.distributed import (batch_pspec, distribute_params,
+                                         distribute_tree)
+    from repro_torch.models.partition import use_mesh
+    mesh, dev = nccl_mesh, torch.device("cuda")
+    q = _dt(torch.zeros((1, 2, 8, 64), device=dev), mesh, Replicate(),
+            Replicate())
+    with pytest.raises(TypeError, match="local shards"):
+        flash_attention(q, q, q)
+    with pytest.raises(TypeError, match="local shards"):
+        rglru_scan(q[0], q[0])
+    cfg = get_reduced("recurrentgemma-2b")
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0), dev)
+    tok = torch.randint(0, cfg.vocab, (2, 16), device=dev,
+                        dtype=torch.int32)
+
+    def place(t, n):
+        spec = batch_pspec(mesh, batch_size=2, extra_dims=n)
+        return distribute_tree({"t": t}, {"t": spec}, mesh)["t"]
+    with torch.no_grad():
+        want, caches, _ = M.prefill(cfg, params, tok, cache_len=20)
+        wd, _ = M.decode_step(cfg, params, want.argmax(-1).to(
+            torch.int32)[:, None], torch.full((2,), 16, dtype=torch.int32,
+                                              device=dev), caches)
+        flash_attention.launches = decode_attention.launches = 0
+        with use_mesh(mesh):
+            dparams = distribute_params(params, cfg, mesh)
+            got, caches, _ = M.prefill(cfg, dparams, place(tok, 1),
+                                       cache_len=20)
+            gd, _ = M.decode_step(cfg, dparams, place(want.argmax(-1).to(
+                torch.int32)[:, None], 1), place(torch.full(
+                    (2,), 16, dtype=torch.int32, device=dev), 0), caches)
+    assert flash_attention.launches > 0 and decode_attention.launches > 0
+    torch.testing.assert_close(got.full_tensor(), want, rtol=2e-3,
+                               atol=2e-3)
+    torch.testing.assert_close(gd.full_tensor(), wd, rtol=2e-3, atol=2e-3)
+
+
+def test_check_range_on_a_dtensor_asserts_on_device(cuda):
+    """``_check_range`` on a CUDA DTensor checks its local shard on the
+    card: no host sync, and an index out of range is a device-side assert
+    (in a child process: the assert ends the CUDA context)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    code = (
+        "import socket, torch\n"
+        "import torch.distributed as dist\n"
+        "from torch.distributed.tensor import DTensor, Shard, Replicate\n"
+        "from repro_torch.launch.mesh import make_debug_mesh\n"
+        "from repro_torch.models import model as M\n"
+        "s = socket.socket(); s.bind(('localhost', 0))\n"
+        "port = s.getsockname()[1]; s.close()\n"
+        "dist.init_process_group('nccl', init_method=f'tcp://localhost:"
+        "{port}', world_size=1, rank=0, device_id=torch.device('cuda', 0))\n"
+        "mesh = make_debug_mesh((1, 1))\n"
+        "def dt(v):\n"
+        "    t = torch.tensor(v, dtype=torch.int32, device='cuda')\n"
+        "    return DTensor.from_local(t, mesh, [Shard(0), Replicate()],\n"
+        "                              run_check=False)\n"
+        "good = dt([0, 5])\n"
+        "torch.cuda.set_sync_debug_mode('error')\n"
+        "M._check_range(good, 6, 'index')\n"
+        "torch.cuda.set_sync_debug_mode('default')\n"
+        "torch.cuda.synchronize()\n"
+        "print('set up', flush=True)\n"
+        "M._check_range(dt([0, 6]), 6, 'index')\n"
+        "torch.cuda.synchronize()\n"
+        "print('synced', flush=True)\n")
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(src)})
+    assert "set up" in out.stdout and "synced" not in out.stdout, \
+        out.stderr[-2000:]
+    assert out.returncode != 0
+    assert "device-side assert" in out.stderr, out.stderr[-2000:]

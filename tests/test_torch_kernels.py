@@ -39,7 +39,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     instance as decode_instance,
 )
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    check_rows_aligned, flash_attention, rows_aligned,
+    check_rows_aligned, flash_attention, flash_attention_plain, rows_aligned,
 )
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     instance as flash_instance,
@@ -326,16 +326,60 @@ def test_cpu_tensors_never_launch_kernels():
     assert decode_attention.launches == 0
 
 
+def _other_device():
+    """Fake tensors on a device with neither a kernel nor a plain route
+    (the CPU and meta run the plain versions, CUDA the kernels)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    return FakeTensorMode(), "xpu"
+
+
 def test_no_kernel_for_other_devices():
-    q = torch.empty((1, 2, 8, 16), device="meta")
-    k = torch.empty((1, 1, 8, 16), device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        flash_attention(q, k, k)
-    with pytest.raises(ValueError, match="no kernel"):
-        decode_attention(q[:, :1, :2], k, k,
-                         torch.empty((1,), dtype=torch.int32, device="meta"),
+    mode, dev = _other_device()
+    with mode:
+        q = torch.empty((1, 2, 8, 16), device=dev)
+        k = torch.empty((1, 1, 8, 16), device=dev)
+        with pytest.raises(ValueError, match="no kernel"):
+            flash_attention(q, k, k)
+        with pytest.raises(ValueError, match="no kernel"):
+            decode_attention(torch.empty((1, 1, 2, 16), device=dev), k, k,
+                             torch.empty((1,), dtype=torch.int32,
+                                         device=dev),
+                             torch.empty((1, 8), dtype=torch.int32,
+                                         device=dev))
+
+
+def test_meta_tensors_run_the_plain_versions():
+    """On the meta device (the dry-run's) each wrapper runs its plain
+    version, shapes only, and launches nothing."""
+    flash_attention.launches = decode_attention.launches = 0
+    rglru_scan.launches = 0
+    q = torch.empty((1, 4, 8, 16), device="meta")
+    k = torch.empty((1, 2, 8, 16), device="meta")
+    assert flash_attention(q, k, k).shape == q.shape
+    assert flash_attention(q, k, k, chunk=3).shape == q.shape
+    pos = torch.empty((1,), dtype=torch.int32, device="meta")
+    o = decode_attention(q[:, :2, :2], k, k, pos,
                          torch.empty((1, 8), dtype=torch.int32,
                                      device="meta"))
+    assert o.shape == (1, 2, 2, 16) and o.device.type == "meta"
+    a = torch.empty((1, 4, 8), device="meta")
+    assert rglru_scan(a, a).shape == a.shape
+    assert flash_attention.launches == decode_attention.launches == \
+        rglru_scan.launches == 0
+
+
+def test_plain_flash_query_chunks_match_one_block():
+    """The plain version's query blocks give one block's result."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.normal(size=(2, 4, 37, 16)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(2, 2, 37, 16)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(2, 2, 37, 16)).astype(np.float32))
+    for kw in (dict(causal=True), dict(causal=True, window=5),
+               dict(causal=False, softcap=20.0)):
+        want = flash_attention_plain(q, k, v, **kw)
+        for chunk in (1, 8, 36):
+            got = flash_attention_plain(q, k, v, chunk=chunk, **kw)
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
 def test_cpu_tensors_never_launch_rglru_kernel():
@@ -351,11 +395,13 @@ def test_cpu_tensors_never_launch_rglru_kernel():
 
 
 def test_rglru_no_kernel_for_other_devices():
-    a = torch.empty((1, 4, 8), device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        rglru_scan(a, a)
-    with pytest.raises(ValueError, match="no kernel"):
-        rglru_scan(a, a, torch.empty((1, 8), device="meta"))
+    mode, dev = _other_device()
+    with mode:
+        a = torch.empty((1, 4, 8), device=dev)
+        with pytest.raises(ValueError, match="no kernel"):
+            rglru_scan(a, a)
+        with pytest.raises(ValueError, match="no kernel"):
+            rglru_scan(a, a, torch.empty((1, 8), device=dev))
 
 
 @pytest.mark.parametrize("dtype,hd,want", [

@@ -2,11 +2,6 @@
 against the reference's ``repro.training``: ``tests/test_training.py``
 run on the port and, where the two packages can be held to each other,
 across them.  Weights cross through ``convert.py``.
-
-Left out: ``test_checkpoint_elastic_reshard``.  It restores under a
-2-device ``NamedSharding``; the port has no sharding layer yet (its
-``restore_checkpoint`` places each leaf on its target's device), and
-re-sharding waits for the port of ``distributed/sharding.py``.
 """
 
 import pytest
@@ -279,6 +274,48 @@ def test_checkpoint_restores_across_packages(tmp_path, dtype, writer):
     for a, b in zip(gl, wl):
         assert a.dtype == b.dtype and a.shape == b.shape
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _reshard_rank(rank, world, port, ckpt_dir, out_dir):
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        from repro_torch.distributed import param_shardings
+        from repro_torch.launch.mesh import make_debug_mesh
+        cfg = get_reduced("granite-8b")
+        mesh = make_debug_mesh((1, world), device_type="cpu")
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        target = tree_map(torch.zeros_like, params)
+        got, _ = restore_checkpoint(ckpt_dir, 1, target,
+                                    shardings=param_shardings(cfg, mesh),
+                                    mesh=mesh)
+        sharded = [any(p.is_shard() for p in t.placements)
+                   for t in tree_leaves(got)]
+        same = all(torch.equal(a, b.full_tensor()) for a, b in zip(
+            tree_leaves(params), tree_leaves(got)))
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump({"same": same, "sharded": sharded}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.slow
+def test_checkpoint_elastic_reshard(tmp_path):
+    """Save unsharded, restore under the parameter placements on a
+    2-rank gloo mesh (``("data", "model")`` = (1, 2)): every leaf is a
+    DTensor whose whole equals the saved array exactly, and the model
+    axis shards some of them."""
+    cfg = get_reduced("granite-8b")
+    save_checkpoint(tmp_path / "ckpt", 1, M.init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu"))
+    world = 2
+    tmp.spawn(_reshard_rank, args=(world, _free_port(),
+                                   str(tmp_path / "ckpt"), str(tmp_path)),
+              nprocs=world, join=True)
+    for r in range(world):
+        got = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert got["same"]
+        assert any(got["sharded"]) and not all(got["sharded"])
 
 
 # ------------------------------------------------------------ compression
