@@ -19,6 +19,8 @@ Phases, each raising on failure (the script then exits non-zero):
 3. kernels -- hold each kernel against its plain PyTorch version on the
               card, at the shapes of the main paths -- granite-8b
               (batch 4, prefill 512, cache 640, hd 128, G 4),
+              qwen2.5-32b (the same shapes, G 5), olmoe-1b-7b (the same
+              shapes, G 1),
               recurrentgemma-2b (batch 4, prefill 2048, window 2048,
               hd 256, G 10 over one kv head; RG-LRU (4, 2048, 2560)),
               granite-moe-1b-a400m (batch 4, prefill 512, cache 640,
@@ -48,8 +50,9 @@ Phases, each raising on failure (the script then exits non-zero):
               softcap as its score_mod; none for the RG-LRU scan) with
               CUDA events (``ms``: includes the wrapper's host path
               where it is the longer);
-4. parity  -- reduced() granite-8b, recurrentgemma-2b, granite-moe-1b-
-              a400m, olmoe-1b-7b, pixtral-12b, whisper-large-v3,
+4. parity  -- reduced() granite-8b, qwen2.5-32b, recurrentgemma-2b,
+              granite-moe-1b-a400m, olmoe-1b-7b, pixtral-12b,
+              whisper-large-v3,
               gemma2-9b (also with the int8 KV cache), gemma3-27b and
               xlstm-350m in fp32: the CUDA model (kernels) against the
               CPU model (plain versions) on the same params and random
@@ -79,11 +82,22 @@ Phases, each raising on failure (the script then exits non-zero):
               attention shape (B 1, H 32, K 8, S 4096, hd 128, causal,
               bf16) flash_attention_fn's grads against autograd through
               the plain version, 3e-2;
+4c. mesh4  -- four gloo ranks on this machine's CPU, on its torch (the
+              version is printed), a (2, 2) ("data", "model") mesh:
+              reduced granite-moe-1b-a400m and olmoe-1b-7b served meshed
+              (fp32, B 4 x S 16, a prefill and 2 decode steps) and
+              reduced xlstm-350m's "sp" loss and gradients, each against
+              the unmeshed port on the same weights (logits 2e-3 of
+              their scale, identical greedy tokens; the loss and every
+              gradient leaf 1e-5 of its scale plus 1e-7); a rank's
+              exception fails the phase;
 5. serve   -- the main paths, one after the other, each engine freed
               before the next: ServingEngine for full-width granite-8b
-              (36 layers, d_model 4096), recurrentgemma-2b (26 layers,
+              (36 layers, d_model 4096), qwen2.5-32b (64 layers, d_model
+              5120, 32.8 B parameters), recurrentgemma-2b (26 layers,
               d_model 2560), granite-moe-1b-a400m (24 layers, d_model
-              1024, 32 experts top-8), pixtral-12b (40 layers, d_model
+              1024, 32 experts top-8), olmoe-1b-7b (16 layers, d_model
+              2048, 64 experts top-8), pixtral-12b (40 layers, d_model
               5120), whisper-large-v3 (32 + 32 layers, d_model 1280),
               gemma2-9b (42 layers, d_model 3584; prompt 4608, past its
               4096 window), gemma3-27b (62 layers, d_model 5376; prompt
@@ -112,7 +126,7 @@ Phases, each raising on failure (the script then exits non-zero):
               21 local layers), greedy agreement with the bf16 cache,
               its phase-6 breakdown, graph against eager;
 5b. launcher -- the reference bench's archs (granite-moe-1b-a400m,
-              whisper-large-v3, pixtral-12b) through
+              whisper-large-v3, pixtral-12b, qwen2.5-32b) through
               ``repro_torch.launch.serve.run_service`` at their full-width
               shapes, once per policy (eager, lazy, slimstart from the
               eager run's report) on the bench's skewed workload of 24
@@ -167,11 +181,16 @@ Phases, each raising on failure (the script then exits non-zero):
               no collective;
 6. breakdown -- for information, after each path: prefill and
               decode-step times with the decode graph (the prefill into
-              its static caches) and with the eager step, each request's
+              its static caches) and with the eager step, the graphed
+              step against the read of every parameter at 3.35 TB/s,
+              on granite-8b and gemma2-9b the graphed step with the
+              port's head (one bf16 GEMM, fp32 result) and with the
+              head widened to fp32 first, in turns, each request's
               wall time, and a torch.profiler trace of one graphed and one
               eager request (device busy share, kernel time by kind): a
               ``generate``, or on pixtral and whisper a ``vision_generate``
-              / ``transcribe`` with random extras; for granite-moe also
+              / ``transcribe`` with random extras; for granite-moe and
+              olmoe also
               one ``moe_apply`` alone at the prefill (4 x 512) and decode
               (4 x 1) shapes, CUDA events;
 7. device_ms -- each kernel's device time a call under torch.profiler
@@ -216,10 +235,15 @@ MODEL_TOL = dict(rtol=2e-3, atol=2e-3)
 # the main paths: batch, prompt length, max_len (the cache holds max_len
 # and the vision prefix), new tokens
 PATHS = {"granite-8b": dict(batch=4, prefill=512, cache=640, new=16),
+         # at granite-8b's shapes: 32.8 B bf16 parameters (65.5 GB of
+         # the card's 80), an untied 152064-row head, G 5
+         "qwen2.5-32b": dict(batch=4, prefill=512, cache=640, new=16),
          "recurrentgemma-2b": dict(batch=4, prefill=2048, cache=2064,
                                    new=16),
          "granite-moe-1b-a400m": dict(batch=4, prefill=512, cache=640,
                                       new=16),
+         # 64 experts top-8, G 1 at hd 128, qk-norm
+         "olmoe-1b-7b": dict(batch=4, prefill=512, cache=640, new=16),
          "pixtral-12b": dict(batch=4, prefill=512, cache=640, new=16),
          # the decoder's 448-token text context (arXiv:2212.04356)
          "whisper-large-v3": dict(batch=4, prefill=224, cache=448, new=16),
@@ -233,7 +257,8 @@ PATHS = {"granite-8b": dict(batch=4, prefill=512, cache=640, new=16),
                             score=512),
          "xlstm-350m": dict(batch=4, prefill=512, cache=528, new=16)}
 # the reference bench's archs and workload length
-LAUNCHER_ARCHS = ("granite-moe-1b-a400m", "whisper-large-v3", "pixtral-12b")
+LAUNCHER_ARCHS = ("granite-moe-1b-a400m", "whisper-large-v3", "pixtral-12b",
+                  "qwen2.5-32b")
 N_LAUNCHER_REQUESTS = 24
 # requests per entry on each main path (entries an arch lacks are skipped)
 N_REQUESTS = {"generate": 3, "vision_generate": 2, "transcribe": 2,
@@ -1130,6 +1155,153 @@ def phase_flash_grad(B=1, H=32, K=8, S=4096, hd=128, chunk=1024):
         f"the plain version (3e-2) ok")
 
 
+# -------------------------------------------------------------- phase 4c
+# the meshed runs held on this machine's torch: the MoE dispatch served,
+# the xLSTM scans' sequence-parallel gradients
+MESH4_SERVE = ("granite-moe-1b-a400m", "olmoe-1b-7b")
+MESH4_GRAD = ("xlstm-350m",)
+MESH4_B, MESH4_S, MESH4_DEC = 4, 16, 2
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _serve_steps(cfg, params, tok, n_dec, place):
+    """A prefill and ``n_dec`` greedy decode steps; ``place(t, n_extra)``
+    puts an input where the run needs it.  Each step's whole logits as
+    numpy (n_dec + 1, B, V)."""
+    import torch
+    from repro_torch.models import model as M
+    out = []
+    lg, caches, _ = M.prefill(cfg, params, place(tok, 1),
+                              cache_len=tok.shape[1] + n_dec + 2)
+    for i in range(n_dec + 1):
+        whole = lg.full_tensor() if hasattr(lg, "full_tensor") else lg
+        out.append(whole.numpy())
+        if i == n_dec:
+            break
+        nxt = whole.argmax(-1).to(torch.int32)[:, None]
+        pos = torch.full((tok.shape[0],), tok.shape[1] + i,
+                         dtype=torch.int32)
+        lg, caches = M.decode_step(cfg, params, place(nxt, 1),
+                                   place(pos, 0), caches)
+    return np.stack(out)
+
+
+def _mesh_rank(rank, world, port, out_dir):
+    """One of the four gloo ranks of phase 4c (CPU tensors): each arch's
+    reduced fp32 config unmeshed and on the (2, 2) mesh; rank 0 saves
+    both into ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_reduced
+    from repro_torch.distributed.sharding import (
+        batch_pspec, distribute_params, distribute_tree)
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.partition import use_act_mode, use_mesh
+    from repro_torch.training.tree import tree_leaves, tree_unflatten
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = make_debug_mesh((2, 2), device_type="cpu")
+        B, S = MESH4_B, MESH4_S
+
+        def place(t, n):
+            return distribute_tree({"t": t}, {"t": batch_pspec(
+                mesh, batch_size=B, extra_dims=n)}, mesh)["t"]
+        for arch in MESH4_SERVE:
+            cfg = get_reduced(arch).with_(dtype="float32")
+            params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+            tok = torch.from_numpy(np.random.default_rng(1).integers(
+                0, cfg.vocab, (B, S)).astype(np.int32))
+            with torch.no_grad():
+                want = _serve_steps(cfg, params, tok, MESH4_DEC,
+                                    lambda t, n: t)
+                dparams = distribute_params(params, cfg, mesh)
+                with use_mesh(mesh):
+                    got = _serve_steps(cfg, dparams, tok, MESH4_DEC, place)
+            if rank == 0:
+                np.savez(Path(out_dir) / f"serve-{arch}.npz", want=want,
+                         got=got)
+        for arch in MESH4_GRAD:
+            cfg = get_reduced(arch).with_(dtype="float32")
+            params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+            tok = torch.from_numpy(np.random.default_rng(2).integers(
+                0, cfg.vocab, (B, S)).astype(np.int32))
+            batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+
+            def grads(p, b):
+                leaves = [x.detach().requires_grad_() for x in tree_leaves(p)]
+                loss, _ = M.loss_fn(cfg, tree_unflatten(p, leaves), b)
+                return [loss] + list(torch.autograd.grad(loss, leaves))
+            want = grads(params, batch)
+            dparams = distribute_params(params, cfg, mesh)
+            dbatch = {k: place(v, 1) for k, v in batch.items()}
+            with use_mesh(mesh), use_act_mode("sp"):
+                got = [g.full_tensor() for g in grads(dparams, dbatch)]
+            if rank == 0:
+                np.savez(Path(out_dir) / f"grad-{arch}.npz",
+                         *[g.detach().numpy() for g in got],
+                         *[w.detach().numpy() for w in want])
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_torch():
+    """Four gloo ranks on this machine's CPU, a (2, 2) ("data", "model")
+    mesh, on the torch installed here: the reduced MoE configs served
+    (fp32, B 4 x S 16, a prefill and 2 decode steps) and reduced
+    xlstm-350m's "sp" loss and gradients, each against the unmeshed port
+    on the same weights -- logits within 2e-3 of their scale with
+    identical greedy tokens; the loss and every gradient leaf within 1e-5
+    of its scale plus 1e-7.  A rank's exception fails the phase."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as tmp
+    log(f"[mesh4] torch {torch.__version__}: 4 gloo ranks, (2, 2) "
+        f"('data', 'model') mesh on the CPU; serve {list(MESH4_SERVE)}, "
+        f"'sp' gradients {list(MESH4_GRAD)}")
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as out:
+        tmp.spawn(_mesh_rank, args=(4, _free_port(), out), nprocs=4,
+                  join=True)
+        for arch in MESH4_SERVE:
+            r = np.load(Path(out) / f"serve-{arch}.npz")
+            want, got = r["want"], r["got"]
+            rel = float(np.abs(got - want).max() / np.abs(want).max())
+            same = bool((got.argmax(-1) == want.argmax(-1)).all())
+            log(f"[mesh4] {arch} reduced fp32 served meshed vs unmeshed: "
+                f"{MESH4_DEC} decode steps, logits max abs diff / max abs "
+                f"{rel:.3e} (limit 2e-3), greedy tokens identical {same}")
+            if got.shape != want.shape or not rel < 2e-3 or not same:
+                raise RuntimeError(f"mesh4 {arch}: the meshed serve differs")
+        for arch in MESH4_GRAD:
+            r = np.load(Path(out) / f"grad-{arch}.npz")
+            arrs = [r[f"arr_{i}"] for i in range(len(r.files))]
+            got, want = arrs[:len(arrs) // 2], arrs[len(arrs) // 2:]
+            # each leaf's difference over its limit (the loss: 1e-5 of it)
+            share = [float(abs(got[0] - want[0]) / (1e-5 * abs(want[0])))]
+            share += [float(np.abs(g - w).max()
+                            / (1e-5 * np.abs(w).max() + 1e-7))
+                      for g, w in zip(got[1:], want[1:])]
+            log(f"[mesh4] {arch} reduced fp32 'sp' loss {float(got[0]):.6f} "
+                f"(unmeshed {float(want[0]):.6f}) and {len(got) - 1} "
+                f"gradient leaves: worst difference {max(share):.3e} of "
+                f"its limit")
+            if not max(share) <= 1:
+                raise RuntimeError(f"mesh4 {arch}: the meshed gradients "
+                                   "differ")
+
+
 # --------------------------------------------------------------- phase 5
 def _kernel_counters():
     from repro_torch.kernels.decode_attention import decode_attention
@@ -1579,9 +1751,92 @@ def phase_breakdown(eng):
             f"request wall_s {wall:.4f} (one sync at its end)")
     log(f"[breakdown] {arch} decode step median eager / graphed: "
         f"{medians['eager'] / medians['graphed']:.2f}x")
+    wbytes = _nbytes(params)
+    bound = wbytes / PEAK_BYTES_S
+    log(f"[breakdown] {arch} graphed decode step median "
+        f"{medians['graphed'] * 1e3:.4f} ms against the weight-read bound "
+        f"{bound * 1e3:.4f} ms (its {wbytes / 1e9:.4f} GB of parameters "
+        f"read once at 3.35 TB/s): {medians['graphed'] / bound:.2f}x")
     for graphed in (True, False):
         profile_request(arch, entry, "graphed" if graphed else "eager",
                         lambda: request([], graphed, sync_steps=False))
+
+
+# phase 6: the decode step with the head widened to fp32 beside the port's
+HEAD_AB_ARCHS = ("granite-8b", "gemma2-9b")
+
+
+def _head_widened(cfg, params, h):
+    """The head with ``h`` and the weight widened to fp32, then an fp32
+    GEMM: a yardstick beside the port's ``_head``, which runs one bf16
+    GEMM with an fp32 result on the card."""
+    import torch
+    from repro_torch.models import layers as L
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return L.softcap(torch.matmul(h.float(), w.float()), cfg.final_softcap)
+
+
+def phase_head_ab(eng):
+    """For information: the graphed decode step with the port's head (the
+    engine's own ``compile.generate`` graph) and with the widened one (a
+    second graph captured on the same weights while ``model._head`` is
+    ``_head_widened``), each over a prefill of the same prompt into its
+    own static caches, 15 steps a run, timed in turns (port, widened,
+    widened, port) with a sync around each step; the two graphs' logits
+    and greedy tokens compared.  Launches are not the path's."""
+    import functools
+    import gc
+
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serving.graphs import DecodeGraph
+    cfg, B = eng.cfg, eng.B
+    spec = PATHS[cfg.name]
+    P, NEW = spec["prefill"], spec["new"]
+    params = eng._params
+    counts = {n: fn.launches for n, fn in _kernel_counters().items()}
+    cache_len = eng.max_len + cfg.vision_tokens
+    graphs = {"port": eng.registry["compile.generate"].value["graph"]}
+    port_head = M._head
+    M._head = _head_widened
+    try:
+        caches = M.init_cache(cfg, B, cache_len, "cuda")
+        graphs["widened"] = DecodeGraph(functools.partial(
+            M.decode_step, cfg), params, caches, B, "cuda")
+    finally:
+        M._head = port_head
+    toks = torch.as_tensor(np.random.default_rng(13).integers(
+        0, cfg.vocab, (B, P)), dtype=torch.int32, device="cuda")
+    steps, logits = {"port": [], "widened": []}, {}
+    for name in ("port", "widened", "widened", "port"):
+        g = graphs[name]
+        lg, _, _ = M.prefill(cfg, params, toks, cache_len=cache_len,
+                             caches=g.caches)
+        tok = lg.argmax(-1).to(torch.int32)[:, None]
+        run = []
+        for i in range(NEW - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, lg = g(tok, P + i)
+            torch.cuda.synchronize()
+            steps[name].append(time.perf_counter() - t0)
+            run.append((tok.clone(), lg.clone()))
+        logits[name] = run
+    rel = max(((a[1] - b[1]).abs().max() / b[1].abs().max()).item()
+              for a, b in zip(logits["port"], logits["widened"]))
+    same = all(torch.equal(a[0], b[0])
+               for a, b in zip(logits["port"], logits["widened"]))
+    med = {n: _median(v) for n, v in steps.items()}
+    log(f"[head] {cfg.name} graphed decode step median: bf16 GEMM with "
+        f"fp32 result {med['port'] * 1e3:.4f} ms, widened to fp32 "
+        f"{med['widened'] * 1e3:.4f} ms ({len(steps['port'])} steps "
+        f"each, in turns); logits max abs diff / max abs {rel:.3e}, greedy "
+        f"tokens identical {same}")
+    for n, fn in _kernel_counters().items():
+        fn.launches = counts[n]
+    del graphs, caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def profile_request(arch, entry, name, run):
@@ -2252,8 +2507,6 @@ def phase_mesh():
     same weights: flash and decode launched on local shards (36 a
     prefill, 36 a step), identical greedy tokens, logits within 2e-3 of
     their scale; prefill and decode-step medians both ways."""
-    import socket
-
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -2265,10 +2518,8 @@ def phase_mesh():
     spec = MESH_PATH
     cfg = get_config(spec["arch"])
     B, P, NEW = spec["batch"], spec["prefill"], spec["new"]
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
                             world_size=1, rank=0,
                             device_id=torch.device("cuda", 0))
     try:
@@ -2423,6 +2674,18 @@ def main():
                     (1, 1, 16, 200, 128, None, None, "hd 128 G 16 S 200"),
                     (2, 2, 1, 150, 64, 40, 30.0,
                      "hd 64 G 1 ring+window+softcap")])],
+            # qwen2.5-32b: hd 128, G 5 (odd: five query heads of a kv
+            # head, padded to 16 MMA rows in decode_mma)
+            "qwen2.5-32b": [
+                flash_cases(gen, "qwen2.5-32b", [
+                    (1, 10, 2, 130, 130, 128, True, None, None,
+                     "hd 128 G 5 S 130"),
+                    (1, 10, 2, 16, 200, 128, False, None, None,
+                     "hd 128 G 5 bidir Sq 16 Skv 200")]),
+                decode_cases(gen, "qwen2.5-32b", "partly filled", [
+                    (2, 2, 5, 77, 128, None, None, "hd 128 G 5 ragged"),
+                    (1, 2, 5, 20, 128, None, None,
+                     "hd 128 G 5 S 20 (one split)")])],
             "granite-moe-1b-a400m": [
                 flash_cases(gen, "granite-moe-1b-a400m", [
                     (1, 4, 2, 130, 130, 64, True, None, None,
@@ -2431,6 +2694,16 @@ def main():
                      "hd 64 bidir Sq 16 Skv 200")]),
                 decode_cases(gen, "granite-moe-1b-a400m", "partly filled", [
                     (2, 2, 2, 77, 64, None, None, "hd 64 G 2 ragged")])],
+            # olmoe-1b-7b: hd 128, G 1 (15 of decode_mma's 16 rows pad)
+            "olmoe-1b-7b": [
+                flash_cases(gen, "olmoe-1b-7b", [
+                    (1, 4, 4, 130, 130, 128, True, None, None,
+                     "hd 128 G 1 S 130"),
+                    (2, 4, 4, 24, 24, 128, True, None, None,
+                     "hd 128 G 1 S 24")]),
+                decode_cases(gen, "olmoe-1b-7b", "partly filled", [
+                    (2, 4, 1, 33, 128, None, None, "hd 128 G 1 ragged"),
+                    (2, 3, 1, 77, 128, None, None, "hd 128 G 1 S 77")])],
             "recurrentgemma-2b": [
                 flash_cases(gen, "recurrentgemma-2b", [
                     (1, 10, 1, 100, 100, 256, True, 48, None,
@@ -2513,6 +2786,7 @@ def main():
         }
     with _Phase("4 parity"):
         phase_parity("granite-8b", 5)
+        phase_parity("qwen2.5-32b", 5)
         phase_parity("recurrentgemma-2b", 20)  # past the reduced window
         phase_parity("granite-moe-1b-a400m", 5)
         phase_parity("olmoe-1b-7b", 5)
@@ -2529,6 +2803,8 @@ def main():
                      "gemma2-9b"):
             phase_grad_parity(arch)
         phase_flash_grad()
+    with _Phase("4c mesh on this torch"):
+        phase_mesh_torch()
     for arch, entries in kernels.items():
         with _Phase(f"5 serve + 6 breakdown {arch}"):
             eng = phase_serve(arch, entries)
@@ -2537,6 +2813,8 @@ def main():
                 phase_moe_timing(eng)
             if PATHS[arch].get("kv_quant"):
                 phase_kv_quant(eng)
+            if arch in HEAD_AB_ARCHS:
+                phase_head_ab(eng)
             del eng  # free this path's weights before the next path's
             gc.collect()
             torch.cuda.empty_cache()

@@ -47,9 +47,9 @@ from repro_torch.kernels._build import is_dtensor
 from repro_torch.kernels.loops import time_loop
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.partition import (constrain, flat_rows,
-                                          gather_dim, like, merge_last,
-                                          rows_out, shard_offset,
-                                          split_last)
+                                          gather_dim, like, lookup,
+                                          merge_last, rows_out,
+                                          shard_offset, split_last)
 
 f32 = torch.float32
 NEG_INF = -1e30
@@ -593,6 +593,21 @@ def _dot_f32(a, b):
     return torch.matmul(a.to(f32), b.to(f32))
 
 
+def _scatter_rows(rows, slot, n):
+    """An (n, D) buffer of zeros with ``rows`` written at ``slot``
+    (``buf[slot] = rows``).  On DTensors each rank writes the whole
+    buffer from the rows and slots gathered whole, and it comes back
+    replicated, as the reference's one-hot dispatch is until its
+    constraint (DTensor has no rule for ``index_put_`` on some torch
+    versions)."""
+    if is_dtensor(rows):
+        return like(rows, _scatter_rows(rows.full_tensor(),
+                                        slot.full_tensor(), n))
+    buf = rows.new_zeros((n, rows.shape[-1]))
+    buf[slot] = rows
+    return buf
+
+
 def moe_apply(p, cfg, x, group_size=None):
     """Switch-style capacity-routed MoE (the reference's grouped one-hot
     dispatch), computed from indices.
@@ -622,8 +637,7 @@ def moe_apply(p, cfg, x, group_size=None):
     slot = torch.where(keep, (top_e * G + grp) * cap + pos, E * G * cap)
     slot = slot.reshape(N * k)
     tok = like(x, torch.arange(N * k, device=x.device) // k)
-    buf = x.new_zeros((E * G * cap + 1, D))
-    buf[slot] = x.reshape(N, D)[tok]
+    buf = _scatter_rows(x.reshape(N, D)[tok], slot, E * G * cap + 1)
     # the dispatched rows: experts over the EP axis, token groups over DP
     # (the reference's constraint on its one-hot dispatch's output)
     xin = constrain(buf[:-1].view(E, G, cap, D), "experts", "batch", None,
@@ -632,10 +646,13 @@ def moe_apply(p, cfg, x, group_size=None):
     gu = torch.matmul(xin, p["wi"])  # x.dtype, fp32 accumulation
     g, u = gu.chunk(2, dim=-1)
     h = F.gelu(g.to(f32), approximate="tanh").to(x.dtype) * u
-    hout = _dot_f32(h, p["wo"]).view(E * G * cap, D)
+    hout = _dot_f32(h, p["wo"])
 
     w = (top_p * keep).reshape(N, k, 1)  # 0 for a dropped slot
-    rows = hout[slot.clamp_max(E * G * cap - 1)].view(N, k, D)
+    # on DTensors each rank gathers the rows of its experts' shard and the
+    # partial sums are reduced (``lookup``)
+    rows = lookup(hout.view(E * G * cap, D),
+                  slot.clamp_max(E * G * cap - 1)).view(N, k, D)
     y = (rows * w).sum(1).to(x.dtype)
 
     load = counts.to(f32) / (N * k)
@@ -750,6 +767,28 @@ def _step_inputs(a):
     return gather_dim(gather_dim(a, 1), 2)
 
 
+def _step_outputs(hs):
+    """The loop's stacked outputs (B, S, heads, ...), whose gradient on a
+    DTensor is gathered as ``_step_inputs`` gathers the inputs, so each
+    step's backward runs batch-sharded only, as its forward does (a
+    gradient split over heads reaches the step's products, whose
+    backward flattens batch and heads: some torch versions refuse that
+    flatten of a sharded dim)."""
+    if not is_dtensor(hs):
+        return hs
+    return _StepOutputsGrad.apply(hs)
+
+
+class _StepOutputsGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hs):
+        return hs.view_as(hs)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _step_inputs(g)
+
+
 def _mlstm_gates(p, x):
     """Input-gate and forget-gate logs (B, S, nh), fp32."""
     x32 = flat_rows(x.to(f32))
@@ -799,7 +838,7 @@ def mlstm_apply(p, cfg, x, *, make_cache=False):
                   for shape in ((B, nh, dh, dh), (B, nh, dh), (B, nh)))
     state, hs = time_loop(
         lambda st, t: _mlstm_step(st, *(a[:, t] for a in proj)), state, S)
-    h = merge_last(hs, 2).to(x.dtype)
+    h = merge_last(_step_outputs(hs), 2).to(x.dtype)
     cache = dict(zip(_MLSTM_STATE, state)) if make_cache else None
     return dot(h, p["wo"]), cache
 
@@ -866,7 +905,7 @@ def slstm_apply(p, cfg, x, *, make_cache=False):
         st = _slstm_step(st, R, *(a[:, t] for a in pre))
         return st, st[2]
     state, hs = time_loop(step, state, S)
-    h = merge_last(hs, 2).to(x.dtype)
+    h = merge_last(_step_outputs(hs), 2).to(x.dtype)
     cache = dict(zip(_SLSTM_STATE, state)) if make_cache else None
     return dot(h, p["wo_out"]), cache
 

@@ -539,9 +539,22 @@ def embed_tokens(cfg, params, tokens):
 
 
 def _head(cfg, params, h):
-    """fp32 logits, as the reference's preferred_element_type=f32."""
+    """fp32 logits, as the reference's preferred_element_type=f32.
+
+    On the card, bf16 ``h`` and weight go into one GEMM with an fp32
+    result and fp32 accumulation (``aten::mm.dtype``), neither widened
+    first: bf16 products are exact in fp32, so only the summation order
+    differs from widening both.  Everywhere else both are widened to
+    fp32: on the CPU and the meta device (``mm.dtype`` has no CPU
+    kernel), in fp32, on a DTensor, and where autograd needs the
+    product's gradient (``mm.dtype`` has no derivative)."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = rows_out(torch.matmul(flat_rows(h.to(f32)), w.to(f32)))
+    grad = torch.is_grad_enabled() and (h.requires_grad or w.requires_grad)
+    if h.is_cuda and h.dtype != f32 and not is_dtensor(h) and not grad:
+        logits = torch.mm(h.reshape(-1, h.shape[-1]), w,
+                          out_dtype=f32).view(*h.shape[:-1], w.shape[-1])
+    else:
+        logits = rows_out(torch.matmul(flat_rows(h.to(f32)), w.to(f32)))
     return L.softcap(logits, cfg.final_softcap)
 
 

@@ -90,6 +90,13 @@ def _rand(rng, shape, dtype, device):
     (1, 4, 2, 1100, 1100, 256, True, 1024, 50.0, "model"),
     (2, 4, 2, 300, 300, 128, True, 64, None, "model"),
     (1, 4, 2, 1100, 1100, 128, True, 1024, None, "model"),
+    # qwen2.5-32b: hd 128, G 5 (odd, above 1); olmoe-1b-7b: hd 128, G 1;
+    # small, ragged, and at their 512-token prefill
+    (1, 10, 2, 40, 40, 128, True, None, None, "bhsd"),
+    (1, 10, 2, 130, 130, 128, True, None, None, "model"),
+    (4, 40, 8, 512, 512, 128, True, None, None, "model"),
+    (1, 4, 4, 24, 24, 128, True, None, None, "bhsd"),
+    (4, 16, 16, 512, 512, 128, True, None, None, "model"),
 ])
 def test_flash_kernel_matches_plain(cuda, B, H, K, Sq, Skv, hd, causal,
                                     window, cap, layout, dtype):
@@ -202,6 +209,13 @@ def test_decode_kernel_rejects_misaligned_rows(cuda, which, dtype, hd):
     (4, 8, 2, 4624, 256, None, 50.0, False),
     (2, 2, 2, 150, 128, 64, None, True),
     (4, 16, 2, 1024, 128, 1024, None, True),
+    # qwen2.5-32b: hd 128, G 5; olmoe-1b-7b: hd 128, G 1; small and at
+    # their 640-slot caches
+    (1, 2, 5, 40, 128, None, None, False),
+    (2, 2, 5, 77, 128, None, None, False),
+    (4, 8, 5, 640, 128, None, None, False),
+    (2, 4, 1, 33, 128, None, None, False),
+    (4, 16, 1, 640, 128, None, None, False),
 ])
 def test_decode_kernel_matches_plain(cuda, B, K, G, S, hd, window, cap,
                                      ring, dtype):
@@ -389,6 +403,7 @@ INT8 = pytest.param("gemma2-9b", 20, {"kv_quant": "int8"},
 
 
 @pytest.mark.parametrize("arch,n_dec,cfg_kw", [("granite-8b", 5, {}),
+                                               ("qwen2.5-32b", 5, {}),
                                                ("recurrentgemma-2b", 20, {}),
                                                ("granite-moe-1b-a400m", 5,
                                                 {}),
@@ -563,6 +578,35 @@ def test_decode_graph_matches_eager_step(cuda, arch, n_dec, cfg_kw):
         torch.testing.assert_close(lg, le, rtol=2e-3, atol=2e-3,
                                    msg=lambda m: f"step {i}: {m}")
         assert torch.equal(tok_g, tok_e), f"step {i}"
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "qwen2.5-32b",
+                                  "gemma2-9b"])
+def test_head_bf16_gemm_matches_widened_product(cuda, arch):
+    """On the card ``_head`` runs bf16 ``h`` and the bf16 weight through
+    one GEMM with an fp32 result: equal to the product of both widened to
+    fp32 within 1e-5 of its scale (the products are exact in fp32; only
+    the summation order differs), for a tied head (granite-8b), an
+    untied one (qwen2.5-32b) and a final softcap (gemma2-9b), on decode's
+    (B, D) and score's (B, S, D) hidden states; under autograd it widens
+    both (``mm.dtype`` has no derivative)."""
+    cfg = get_reduced(arch).with_(dtype="bfloat16")
+    params = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           cuda)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    rng = np.random.default_rng(3)
+    for shape in ((4, cfg.d_model), (2, 5, cfg.d_model)):
+        h = _rand(rng, shape, torch.bfloat16, cuda)
+        got = M._head(cfg, params, h)
+        want = L.softcap(h.float() @ w.float(), cfg.final_softcap)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        scale = want.abs().max().item()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+        hg = h.clone().requires_grad_()
+        out = M._head(cfg, params, hg)
+        torch.testing.assert_close(out, want, rtol=0, atol=0)
+        out.sum().backward()
+        assert hg.grad.shape == h.shape
 
 
 def test_check_range_asserts_on_device(cuda):

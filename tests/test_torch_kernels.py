@@ -82,7 +82,9 @@ def _np(x):
         # hd 256, G 10, window; whisper's cross attention: G 1, no mask,
         # Sq != Skv, both ragged against the blocks
         (2, 4, 4, 20, 36, 64, False, None, None),
-    ])
+        (1, 10, 2, 40, 40, 128, True, None, None),    # qwen2.5-32b: G 5
+        (1, 4, 4, 24, 24, 128, True, None, None),     # olmoe-1b-7b: G 1
+    ])                                                # at hd 128
 def test_flash_plain_vs_pallas(B, H, K, Sq, Skv, hd, causal, window, cap,
                                dtype):
     rng = np.random.default_rng(B * 1000 + Sq + Skv)
@@ -127,7 +129,11 @@ def _decode_positions(B, S, ring):
         (2, 2, 1, 40, 16, 16, None, True),      # ring buffer + window
         (1, 2, 2, 33, 16, None, 30.0, False),   # softcap
         (1, 1, 10, 40, 256, 16, None, True),    # recurrentgemma: hd 256,
-    ])                                          # G 10, wrapped ring
+        # G 10, wrapped ring; qwen2.5-32b's G 5 and olmoe-1b-7b's G 1, both
+        # at hd 128
+        (1, 2, 5, 40, 128, None, None, False),
+        (2, 4, 1, 33, 128, None, None, False),
+    ])
 def test_decode_plain_vs_pallas(B, K, G, S, hd, window, cap, ring, dtype):
     rng = np.random.default_rng(B * 100 + S)
     jq, tq = _pair(rng, (B, K, G, hd), dtype)

@@ -333,6 +333,41 @@ def test_vision_prefix_fills_the_first_positions():
     assert np.abs(_np(text_only) - _np(tl)).max() > 1e-3
 
 
+def test_group_of_five_matches_reference():
+    """qwen2.5-32b's G 5 (40 query heads over 8 kv heads) at reduced
+    size: 10 query heads over 2 kv heads, the reference's reduced model
+    and the port's with the same change, on the reference's weights --
+    prefill and decode logits and the caches at 2e-3."""
+    kw = dict(n_heads=10, n_kv_heads=2)
+    jcfg = j_reduced("qwen2.5-32b").with_(**kw)
+    tcfg = t_reduced("qwen2.5-32b").with_(**kw)
+    assert tcfg.n_heads // tcfg.n_kv_heads == 5
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(5))
+    tparams = from_numpy_tree(jax.tree.map(np.asarray, jparams), "cpu")
+    B, T0, n_dec = 2, 8, 5
+    toks = np.random.default_rng(6).integers(
+        0, jcfg.vocab, (B, T0 + n_dec)).astype(np.int32)
+    jl, jc, _ = JM.prefill(jcfg, jparams, jnp.asarray(toks[:, :T0]),
+                           cache_len=T0 + n_dec)
+    tl, tc, _ = TM.prefill(tcfg, tparams, torch.from_numpy(toks[:, :T0]),
+                           cache_len=T0 + n_dec)
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL,
+                               err_msg="G 5: prefill logits")
+    for i in range(n_dec):
+        pos = np.full((B,), T0 + i, np.int32)
+        tok = toks[:, T0 + i:T0 + i + 1]
+        jl, jc = JM.decode_step(jcfg, jparams, jnp.asarray(tok),
+                                jnp.asarray(pos), jc)
+        tl, tc = TM.decode_step(tcfg, tparams, torch.from_numpy(tok),
+                                torch.from_numpy(pos), tc)
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL,
+                                   err_msg=f"G 5: decode step {i}")
+    jcn = dict(_leaves(jax.tree.map(np.asarray, jc)))
+    for name, arr in _leaves(to_numpy_tree(tc)):
+        np.testing.assert_allclose(arr, jcn[name], **TOL,
+                                   err_msg=f"G 5: cache {name}")
+
+
 # T0 20 > the reduced window of 16: the prefill rolls the ring; the ids
 # of recurrentgemma's cases are their prompt lengths alone
 @pytest.mark.parametrize("arch,T0", [
