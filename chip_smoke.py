@@ -179,6 +179,15 @@ Phases, each raising on failure (the script then exits non-zero):
               card's 80 GB, FLOPs, bytes and collective bytes by kind;
               fails where a cell whose model axis shards parameters ran
               no collective;
+5h. mesh train -- phase 5e's 8-layer step on a (1, 1) NCCL mesh: the
+              parameters and the ZeRO-1 AdamW state built in place by
+              ``distributed.init_sharded_state`` (seed 0, so phase 5e's
+              weights), 2 steps of ``make_train_step`` under ``use_mesh``
+              on 5e's batch, against 2 unmeshed steps from the same seed:
+              losses, grad norms and every parameter leaf within 1e-6 of
+              their scale (a one-rank mesh runs the same local ops);
+              flash exactly 16 launches a step; the step times both ways,
+              for information;
 6. breakdown -- for information, after each path: prefill and
               decode-step times with the decode graph (the prefill into
               its static caches) and with the eager step, the graphed
@@ -2625,6 +2634,107 @@ def phase_dryrun():
                                "shards parameters but no collective ran")
 
 
+# -------------------------------------------------------------- phase 5h
+MESH_TRAIN_STEPS = 2
+
+
+def _mesh_train_run(cfg, step, params, opt, batch):
+    """MESH_TRAIN_STEPS steps; (loss, grad norm, seconds) of each."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    def num(t):
+        return float(t.full_tensor() if hasattr(t, "full_tensor") else t)
+    per_step = _train_launches(cfg)["flash_attention"]
+    out = []
+    for _ in range(MESH_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        loss, gnorm = num(m["loss"]), num(m["grad_norm"])
+        torch.cuda.synchronize()
+        out.append((loss, gnorm, time.perf_counter() - t0))
+        if flash_attention.launches != per_step:
+            raise RuntimeError(f"mesh train: {flash_attention.launches} "
+                               f"flash launches in a step, want {per_step}")
+    return out
+
+
+def phase_mesh_train():
+    """Phase 5e's configuration (8 layers, bf16, B 4 x 4096, lr 1e-3) on
+    a one-rank NCCL process group and a (1, 1) ("data", "model") mesh:
+    the state built in place with ZeRO-1 placements
+    (``init_sharded_state``) from seed 0 and MESH_TRAIN_STEPS steps of
+    ``make_train_step`` under ``use_mesh`` in "sp" mode, against the same
+    steps unmeshed from ``init_params`` / ``adamw_init`` with seed 0 on
+    5e's batch: losses and grad norms within 1e-6 relative, every
+    parameter leaf within 1e-6 of its largest magnitude; step times both
+    ways, for information."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import init_sharded_state
+    from repro_torch.distributed.sharding import batch_pspec, distribute_tree
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.partition import use_act_mode, use_mesh
+    from repro_torch.training.adamw import adamw_init
+    from repro_torch.training.data import make_pipeline
+    from repro_torch.training.step import make_train_step
+    from repro_torch.training.tree import tree_leaves
+    cfg = _train_cfg()
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+             next(make_pipeline(cfg.vocab, B, S, seed=0)).items()}
+    step = make_train_step(cfg, lr=TRAIN["lr"])
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    opt = adamw_init(params)
+    plain = _mesh_train_run(cfg, step, params, opt, batch)
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_debug_mesh((1, 1), ("data", "model"))
+        dparams, dopt = init_sharded_state(
+            cfg, mesh, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        dbatch = distribute_tree(batch, {k: batch_pspec(
+            mesh, batch_size=B, extra_dims=1) for k in batch}, mesh)
+        with use_mesh(mesh), use_act_mode("sp"):
+            meshed = _mesh_train_run(cfg, step, dparams, dopt, dbatch)
+        worst = max(
+            float((d.to_local() - p).abs().max() / p.abs().max())
+            for d, p in zip(tree_leaves(dparams), tree_leaves(params)))
+        placements = sorted({str(tuple(str(x) for x in t.placements))
+                             for t in tree_leaves(dopt.master)})
+        del dparams, dopt
+    finally:
+        dist.destroy_process_group()
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = max(abs(g - w) / abs(w) for gs, ws in zip(meshed, plain)
+              for g, w in zip(gs[:2], ws[:2]))
+    log(f"[mesh train] {TRAIN['arch']} {cfg.n_layers} layers bf16 B {B} x "
+        f"{S} lr {TRAIN['lr']}, state built in place on a (1, 1) NCCL "
+        f"mesh (master placements {placements}): (loss, grad_norm) meshed "
+        f"{[(round(x[0], 6), round(x[1], 6)) for x in meshed]} unmeshed "
+        f"{[(round(x[0], 6), round(x[1], 6)) for x in plain]} (worst rel "
+        f"{rel:.3e}); parameters after {MESH_TRAIN_STEPS} steps: worst max "
+        f"abs diff / max abs {worst:.3e} (limit 1e-6); step s meshed "
+        f"{[round(x[2], 4) for x in meshed]} unmeshed "
+        f"{[round(x[2], 4) for x in plain]}")
+    if not (rel <= 1e-6 and worst <= 1e-6):
+        raise RuntimeError("mesh train: the (1, 1) meshed steps differ "
+                           "from the unmeshed ones")
+
+
 class _Phase:
     """Logs a phase's wall time when it ends."""
 
@@ -2833,6 +2943,8 @@ def main():
         phase_mesh()
     with _Phase("5g dryrun"):
         phase_dryrun()
+    with _Phase("5h mesh train"):
+        phase_mesh_train()
     with _Phase("7 device_ms"):
         phase_device_time([e for es in kernels.values() for e in es])
     log(f"[time] total {time.perf_counter() - t_start:.1f} s")

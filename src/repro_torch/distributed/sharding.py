@@ -23,12 +23,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import torch
+
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import ParamSpec
-from repro_torch.models.model import cache_layout, model_template
+from repro_torch.models.model import (_STACKED, _leaves, cache_layout,
+                                      model_template)
 from repro_torch.models.partition import (MeshAxes, P, mesh_sizes,
                                           to_placements)
 from repro_torch.training.adamw import AdamWState
+from repro_torch.training.tree import tree_leaves, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,7 +223,6 @@ def distribute_tree(tree, specs, mesh):
     Every rank holds the whole tensor (the same seed, or a checkpoint),
     so each keeps its own shard and nothing is communicated."""
     from torch.distributed.tensor import distribute_tensor
-    from repro_torch.training.tree import tree_leaves, tree_unflatten
     leaves = tree_leaves(tree)
     spec_leaves = _spec_leaves(specs)
     if len(spec_leaves) != len(leaves):
@@ -251,3 +254,102 @@ def _spec_leaves(specs) -> list:
     if isinstance(specs, (tuple, list)):
         return [x for t in specs for x in _spec_leaves(t)]
     raise TypeError(f"not a spec: {specs!r}")
+
+
+def _local_index(shape, placements, mesh) -> list[tuple[int, int]]:
+    """(first index, length) along each dim of this rank's shard of a
+    tensor of global ``shape`` under ``placements`` (even shards; a dim
+    sharded on several mesh dims splits in mesh order, as DTensor's)."""
+    coord = mesh.get_coordinate()
+    idx, n = [0] * len(shape), list(shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            idx[p.dim] = idx[p.dim] * mesh.size(i) + coord[i]
+            n[p.dim] //= mesh.size(i)
+    return [(i * m, m) for i, m in zip(idx, n)]
+
+
+def _put(dst, index, src, layer=None):
+    """Copy the part of ``src`` (a whole leaf, or its stacked slice
+    ``layer``) that ``index`` holds into the local shard ``dst``."""
+    if layer is not None:
+        (lo, n), index = index[0], index[1:]
+        if not lo <= layer < lo + n:
+            return
+        dst = dst[layer - lo]
+    dst.copy_(src[tuple(slice(lo, lo + n) for lo, n in index)])
+
+
+def init_sharded_state(cfg: ArchConfig, mesh, generator: torch.Generator,
+                       device="cuda", *, optimizer: bool = True,
+                       rules: ShardingRules = DEFAULT_RULES):
+    """Random parameters, and with ``optimizer`` their AdamW state,
+    built straight into their placements on ``mesh``: parameters by
+    ``param_pspecs``, fp32 masters and zero moments by ``opt_pspecs``
+    (ZeRO-1).  Returns (params, AdamWState or None), DTensors whose
+    values are those of ``init_params(cfg, generator)`` (and of
+    ``adamw_init`` of them) with the same seed: leaves are drawn in
+    ``init_params``' order from one generator, a stacked weight one layer
+    slice at a time, and each rank keeps its shards of every slice.  So
+    no rank holds more than one unsharded slice beside its shards (the
+    counterpart of the reference's ``init_params`` / ``adamw_init`` under
+    ``out_shardings``)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    pspecs = dict(_leaves(param_pspecs(cfg, mesh, rules)))
+    ospecs = dict(_leaves(opt_pspecs(cfg, mesh, rules).master)) \
+        if optimizer else {}
+
+    def shard(spec, shape, dtype):
+        placements = to_placements(spec, mesh)
+        index = _local_index(shape, placements, mesh)
+        local = torch.empty([n for _, n in index], dtype=dtype,
+                            device=device)
+        return local, index, placements
+
+    def build(tmpl, stacked, path=""):
+        # init_params' walk: template order, a stacked leaf slice by slice
+        params, masters = {}, {}
+        for k, s in tmpl.items():
+            if isinstance(s, dict):
+                params[k], masters[k] = build(
+                    s, stacked or f"{path}{k}" in _STACKED, f"{path}{k}/")
+                continue
+            targets = [shard(pspecs[path + k], s.shape, cfg.tdtype)]
+            if optimizer:
+                targets.append(shard(ospecs[path + k], s.shape,
+                                     torch.float32))
+            if stacked:
+                inner = ParamSpec(s.shape[1:], s.axes[1:], s.init, s.scale)
+                for layer in range(s.shape[0]):
+                    src = torch.empty(s.shape[1:], dtype=cfg.tdtype,
+                                      device=device)
+                    inner.fill_(src, generator)
+                    for local, index, _ in targets:
+                        _put(local, index, src, layer)
+            else:
+                src = torch.empty(s.shape, dtype=cfg.tdtype, device=device)
+                s.fill_(src, generator)
+                for local, index, _ in targets:
+                    _put(local, index, src)
+            del src
+            params[k], *rest = (DTensor.from_local(
+                local, mesh, placements, run_check=False)
+                for local, _, placements in targets)
+            if rest:
+                masters[k] = rest[0]
+        return params, masters
+
+    params, masters = build(model_template(cfg), False)
+    if not optimizer:
+        return params, None
+
+    def zeros(m):
+        return DTensor.from_local(torch.zeros_like(m.to_local()), mesh,
+                                  m.placements, run_check=False)
+    step = DTensor.from_local(
+        torch.zeros((), dtype=torch.int32, device=device), mesh,
+        [Replicate()] * mesh.ndim, run_check=False)
+    return params, AdamWState(
+        step=step, master=masters,
+        mu=tree_unflatten(masters, [zeros(m) for m in tree_leaves(masters)]),
+        nu=tree_unflatten(masters, [zeros(m) for m in tree_leaves(masters)]))

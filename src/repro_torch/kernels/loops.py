@@ -8,9 +8,14 @@ its first step, then one more inside ``repeat(S - 1)``, a context that
 counts what runs in it S - 1 times; the other steps' outputs are that
 step's.  The autograd nodes the repeated step made run their backward
 inside ``repeat(S - 1)`` too, so a train step's backward through the
-loop is counted S - 1 times as well; what the autograd engine does
-between nodes (summing the per-step gradients of a tensor the loop
-slices) is not repeated.  Values are not those of the full loop (the
+loop is counted S - 1 times as well.  The autograd engine sums the
+per-step gradients of a tensor made before the loop (one the steps
+slice or share) between nodes, where no hook sees it: the full loop
+adds S of them, the loop-aware one two, so each such gradient of the
+repeated step is added to itself once more inside ``repeat(S - 2)``,
+an add of the same bytes.  The engine's sums of gradients made inside
+the steps (a tensor a step uses twice, the state a step hands on) are
+still counted once.  Values are not those of the full loop (the
 dry-run runs on the meta device, where there are none).
 """
 
@@ -47,13 +52,14 @@ def time_loop(step, state, S):
             state, out = step(state, t)
             outs.append(out)
         return state, torch.stack(outs, dim=1)
-    state, first = step(state, 0)
     grad = torch.is_grad_enabled()
+    before = _sequence_mark() if grad else None
+    state, first = step(state, 0)
     mark = _sequence_mark() if grad else None
     with repeat(S - 1):  # steps 1..S-1 are one step's ops S - 1 times
         state, last = step(state, 1)
     if grad:
-        _repeat_backward(repeat, S - 1, mark, (state, last))
+        _repeat_backward(repeat, S - 1, mark, (state, last), before)
     rest = last[:, None].expand(last.shape[:1] + (S - 1,) + last.shape[1:])
     return state, torch.cat([first[:, None], rest], dim=1)
 
@@ -66,9 +72,11 @@ def _sequence_mark() -> int:
     return probe.grad_fn._sequence_nr()
 
 
-def _repeat_backward(repeat, n, mark, outputs):
+def _repeat_backward(repeat, n, mark, outputs, before):
     """Run the backward of every autograd node made after ``mark`` that
-    ``outputs`` reach (the repeated step's) inside ``repeat(n)``."""
+    ``outputs`` reach (the repeated step's) inside ``repeat(n)``, and
+    count the engine's sums of their gradients for nodes made before
+    ``before`` (the loop) n - 1 times more."""
     roots = [t.grad_fn for t in _tensors(outputs) if t.grad_fn is not None]
     seen, todo, nodes = set(), list(roots), []
     while todo:
@@ -87,9 +95,23 @@ def _repeat_backward(repeat, n, mark, outputs):
 
     def leave(*_):
         active.pop().__exit__(None, None, None)
+
+    def summed(node):
+        into = [nxt is not None and nxt not in seen and (
+            type(nxt).__name__ == "AccumulateGrad"
+            or nxt._sequence_nr() < before) for nxt, _ in node.next_functions]
+
+        def add(grads, _):
+            with repeat(n - 1):
+                for g, hit in zip(grads, into):
+                    if hit and g is not None:
+                        g + g
+        return add
     for node in nodes:
         node.register_prehook(enter)
         node.register_hook(leave)
+        if n > 1:
+            node.register_hook(summed(node))
 
 
 def _tensors(tree):

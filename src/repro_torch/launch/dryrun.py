@@ -15,7 +15,9 @@ a dispatch mode that sees every op on rank 0's local shards:
 * ``bytes_accessed``: each op's local inputs and outputs (views and
   collectives excluded);
 * ``memory``: argument and output bytes per device, and the peak of the
-  storages the step allocates (``temp_bytes``);
+  storages the step allocates (``temp_bytes``; the arguments' own
+  storages, which AdamW updates in place, are not among them, as XLA's
+  temp size leaves out donated arguments);
 * ``collectives``: result bytes per device of each functional
   collective DTensor issues, by kind, as the reference's HLO parser
   counts them (``repro/launch/dryrun.py:87-105``).
@@ -143,6 +145,15 @@ class StepCounter(TorchDispatchMode):
             yield
         finally:
             self._scale = prev
+
+    def ignore(self, tree):
+        """Leave the storages of ``tree``'s tensors (local shards of
+        DTensors) out of the live count: they exist before the step, and
+        an in-place op on one allocates nothing."""
+        for t in tree_flatten(tree)[0]:
+            if isinstance(t, torch.Tensor):
+                local = t.to_local() if hasattr(t, "to_local") else t
+                self._seen.add(local.untyped_storage())
 
     def _track(self, out):
         for t in tree_flatten(out)[0]:
@@ -311,6 +322,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod=False, act_mode=None,
         arg_bytes = _local_bytes(args)
         t_build = time.time() - t0
         loops = time_loops(counter.repeat if loop_aware else None)
+        counter.ignore(args)
         with use_mesh(mesh), use_act_mode(act_mode), loops, counter:
             out = fn(*args)
         t_run = time.time() - t0 - t_build

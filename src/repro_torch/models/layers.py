@@ -46,7 +46,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels._build import is_dtensor
 from repro_torch.kernels.loops import time_loop
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.partition import (constrain, flat_rows,
+from repro_torch.models.partition import (constrain, contraction_split,
+                                          dot_f32_sum, flat_rows,
                                           gather_dim, like, lookup,
                                           merge_last, rows_out,
                                           shard_offset, split_last)
@@ -81,7 +82,11 @@ class ParamSpec:
 # --------------------------------------------------------------------------
 
 def dot(x, w):
-    """Matmul with fp32 accumulation, output in x.dtype."""
+    """Matmul with fp32 accumulation, output in x.dtype (on a
+    row-parallel DTensor weight, the ranks' partial sums added in fp32:
+    ``partition.dot_f32_sum``)."""
+    if contraction_split(w):
+        return dot_f32_sum(x, w)
     return rows_out(torch.matmul(flat_rows(x), w))
 
 
@@ -523,12 +528,38 @@ def mlp_template(cfg: ArchConfig):
 
 def mlp_apply(p, x):
     # the hidden pinned to ff (model) sharding, as the reference's
-    gu = constrain(dot(x, p["wi"]), "batch", None, "ff")
-    g, u = gu.chunk(2, dim=-1)
+    g, u = _gate_up(p["wi"], x)
     # jax.nn.gelu defaults to the tanh approximation
     h = constrain(F.gelu(g.to(f32), approximate="tanh").to(x.dtype) * u,
                   "batch", None, "ff")
     return dot(h, p["wo"])
+
+
+def _gate_up(wi, x):
+    """The gate and up halves of ``x @ wi`` (the fused gate + up weight),
+    each pinned to ff (model) sharding.  Where the model axis splits
+    wi's columns, each half lies on half of the ranks, so one of two
+    tensors is gathered: the product (``chunk`` of an ff-sharded DTensor
+    gathers it whole: 14.5 GB a rank at qwen2.5-32b's 4 x 32768 prefill
+    on four ranks) or, where the product has more rows than wi, the
+    weight, whose halves are then split over the model axis again."""
+    x = flat_rows(x)
+    if _gather_weight(wi, x):
+        halves = gather_dim(wi, -1).chunk(2, dim=-1)
+        return tuple(
+            constrain(dot(x, w.redistribute(wi.device_mesh, wi.placements)),
+                      "batch", None, "ff") for w in halves)
+    gu = constrain(dot(x, wi), "batch", None, "ff")
+    return gu.chunk(2, dim=-1)
+
+
+def _gather_weight(wi, x) -> bool:
+    """Whether the product ``x @ wi`` would be larger on a rank than the
+    DTensor weight ``wi`` whose columns the mesh splits."""
+    if not is_dtensor(wi) or not any(p.is_shard(wi.ndim - 1)
+                                     for p in wi.placements):
+        return False
+    return math.prod(x.to_local().shape[:-1]) > wi.shape[-2]
 
 
 # --------------------------------------------------------------------------
@@ -568,7 +599,7 @@ def moe_route(p, cfg, xg):
     E, k = e.n_experts, e.top_k
     logits = torch.matmul(xg.to(f32), p["router"].to(f32))
     probs = torch.softmax(logits, dim=-1)
-    top_p, top_e = torch.topk(probs, k, dim=-1)
+    top_p, top_e = _topk(probs, k)
     top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
     cap = max(int(e.capacity_factor * gs * k / E), 1)
     flat = merge_last(top_e, 2)[:, None]  # (G, 1, gs*k)
@@ -580,6 +611,23 @@ def moe_route(p, cfg, xg):
     pos = before.gather(1, flat).reshape(G, gs, k)
     counts = onehot.sum((0, 2), dtype=torch.int32)
     return probs, top_p, top_e, pos, cap, counts
+
+
+def _topk(x, k):
+    """``torch.topk`` over the last dim.  On a DTensor it runs on each
+    rank's shard, the last dim whole (topk's backward scatters the
+    gradient into a plain zeros tensor, which some torch versions cannot
+    mix with a DTensor gradient)."""
+    if not is_dtensor(x):
+        return torch.topk(x, k, dim=-1)
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = x.device_mesh
+    placements = tuple(Replicate() if p.is_partial() or p.is_shard(
+        x.ndim - 1) else p for p in x.placements)
+    if placements != tuple(x.placements):
+        x = x.redistribute(mesh, placements)
+    return tuple(DTensor.from_local(t, mesh, placements, run_check=False)
+                 for t in torch.topk(x.to_local(), k, dim=-1))
 
 
 def _dot_f32(a, b):
@@ -659,7 +707,9 @@ def moe_apply(p, cfg, x, group_size=None):
     importance = probs.mean((0, 1))
     aux = {"expert_load": load,
            "moe_aux_loss": E * torch.sum(load * importance)}
-    return y.reshape(B, S, D), aux
+    # on a DTensor the output's gradient comes back sequence-sharded in
+    # "sp" mode: gathered (``rows_out``) before the view back to rows
+    return rows_out(y.reshape(B, S, D)), aux
 
 
 # --------------------------------------------------------------------------

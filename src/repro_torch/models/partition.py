@@ -266,6 +266,82 @@ def lookup(table, idx):
     return out if whole == tuple(out_p) else out.redistribute(mesh, whole)
 
 
+def contraction_split(w) -> bool:
+    """Whether DTensor ``w`` (K, F) has its K rows split over a mesh dim
+    (a row-parallel weight: each rank's product is a partial sum)."""
+    return is_dtensor(w) and any(p.is_shard(w.ndim - 2)
+                                 for p in w.placements)
+
+
+def dot_f32_sum(x, w):
+    """``x @ w`` for a row-parallel DTensor ``w`` (``contraction_split``)
+    in x's dtype, the ranks' partial products summed in fp32: each rank
+    multiplies its K-slices with an fp32 result, the partial sums are
+    reduced in fp32 onto the residual stream's placement ("batch",
+    "seq", "embed" under the current act mode) and only then cast.  The
+    reference's einsum with ``preferred_element_type=f32`` reduces
+    before its cast the same way; a DTensor matmul in bf16 would round
+    every rank's partial product to bf16 and sum those.  ``x`` gets
+    ``flat_rows``; a mesh dim that splits w's columns takes DTensor's
+    own matmul."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    x = flat_rows(x)
+    mesh = w.device_mesh
+    xp, yp, wg = [], [], []
+    for xpi, wpi in zip(x.placements, w.placements):
+        if wpi.is_shard(0):  # K split: x's last dim alike, partial sums
+            xp.append(Shard(x.ndim - 1))
+            yp.append(Partial())
+            wg.append(wpi)
+        elif wpi.is_replicate():  # rows of x split or whole
+            keep = xpi if xpi.is_shard(0) else Replicate()
+            xp.append(keep)
+            yp.append(keep)
+            # a replicated w's gradient from split rows: a partial sum
+            wg.append(Partial() if keep.is_shard() else wpi)
+        else:
+            return rows_out(torch.matmul(x, w))
+    xp = tuple(xp)
+    if tuple(x.placements) != xp:
+        x = x.redistribute(mesh, xp)
+    y = _PartialFromLocal.apply(
+        _DotF32.apply(x.to_local(grad_placements=xp),
+                      w.to_local(grad_placements=tuple(wg))), mesh,
+        tuple(yp))
+    names = ("batch", "seq") + (None,) * (y.ndim - 3) + ("embed",) \
+        if y.ndim >= 3 else ("batch", "embed")
+    target = to_placements(act_spec(y.shape, names, mesh_sizes(mesh),
+                                    act_mode()), mesh)
+    y = y.redistribute(mesh, tuple(
+        t if p.is_partial() else p for p, t in zip(yp, target)))
+    return rows_out(y.to(x.dtype))
+
+
+class _DotF32(torch.autograd.Function):
+    """``x @ w`` of plain tensors with an fp32 result (bf16 products are
+    exact in fp32; on the card one GEMM with fp32 output, elsewhere both
+    widened); the backward's two products run in x's dtype, as a
+    matmul's do."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.is_cuda and x.dtype != torch.float32:
+            y = torch.mm(x2, w, out_dtype=torch.float32)
+        else:
+            y = torch.mm(x2.float(), w.float())
+        return y.view(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gw = torch.mm(x.reshape(-1, x.shape[-1]).t(),
+                      g.reshape(-1, g.shape[-1]))
+        return torch.matmul(g, w.t()), gw
+
+
 class _PartialFromLocal(torch.autograd.Function):
     """``DTensor.from_local`` under placements that may be partial sums,
     whose gradient is each rank's whole one (the sum's derivative with

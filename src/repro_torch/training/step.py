@@ -21,7 +21,8 @@ from repro_torch.kernels._build import is_dtensor
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import decode_step, loss_fn, prefill
 from repro_torch.models.partition import constrain
-from repro_torch.training.adamw import AdamWState, adamw_update, global_norm
+from repro_torch.training.adamw import (AdamWState, adamw_update,
+                                        global_norm, place_grads)
 from repro_torch.training.tree import tree_leaves, tree_map, tree_unflatten
 
 f32 = torch.float32
@@ -39,6 +40,11 @@ def make_train_step(cfg: ArchConfig, *, lr=3e-4, accum_steps: int = 1,
     accum_steps > 1 splits the batch on its leading dim into that many
     microbatches and sums their grads in fp32, divided by accum_steps:
     the activation-memory lever for large batches.
+
+    On a mesh (parameters and ``opt_state`` as DTensors, the state
+    placed by ``opt_pspecs``) the grads take the masters' placements
+    before the update (``place_grads``), so ``grad_norm`` and the
+    update read each gradient once, reduced.
     """
 
     def grads_of(params, batch):
@@ -53,13 +59,17 @@ def make_train_step(cfg: ArchConfig, *, lr=3e-4, accum_steps: int = 1,
     def train_step(params, opt_state: AdamWState, batch):
         if accum_steps == 1:
             grads, metrics = grads_of(params, batch)
+            grads = place_grads(grads, opt_state)
         else:
-            grads = tree_map(lambda p: torch.zeros_like(p, dtype=f32),
-                             params)
+            # on a mesh the sums are kept in the masters' placements
+            like = opt_state.master if is_dtensor(opt_state.step) \
+                else params
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=f32), like)
             for i in range(accum_steps):
                 micro = {k: _microbatch(v, accum_steps, i)
                          for k, v in batch.items()}
                 g, metrics = grads_of(params, micro)
+                g = place_grads(g, opt_state)
                 tree_map(lambda a, gg: a.add_(gg.to(f32)), grads, g)
                 del g
             grads = tree_map(lambda g: g.div_(accum_steps), grads)

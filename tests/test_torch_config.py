@@ -86,8 +86,12 @@ def test_import_leaves_jax_and_repro_out():
 
 
 def test_no_jax_or_repro_import_in_source():
+    """No module of the port, and neither of its card scripts
+    (``chip_smoke.py``, ``mesh_smoke.py``), imports jax or repro."""
     offenders = []
-    for path in sorted((SRC / "repro_torch").rglob("*.py")):
+    scripts = [SRC.parent / name for name in ("chip_smoke.py",
+                                              "mesh_smoke.py")]
+    for path in sorted((SRC / "repro_torch").rglob("*.py")) + scripts:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]

@@ -435,6 +435,21 @@ def test_dryrun_cell_keys_and_sharded_counts():
     assert not dist.is_initialized()
 
 
+def test_dryrun_temp_leaves_out_arguments_updated_in_place():
+    """``temp_bytes`` counts what a step allocates: an in-place update of
+    one of its arguments (AdamW's masters and moments; ``run_cell``
+    ignores the step's arguments) allocates nothing, a new tensor does."""
+    x = torch.zeros(1000, device="meta")
+    counter = D.StepCounter()
+    counter.ignore([x])
+    with counter:
+        x.mul_(2.0).add_(1.0)
+    assert counter.peak == 0
+    with counter:
+        y = x * 2.0
+    assert counter.peak == 4000 and y.shape == x.shape
+
+
 def test_production_mesh_on_a_fake_world():
     with D.fake_world(256):
         mesh = TMESH.make_production_mesh()
