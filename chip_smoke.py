@@ -188,6 +188,15 @@ Phases, each raising on failure (the script then exits non-zero):
               their scale (a one-rank mesh runs the same local ops);
               flash exactly 16 launches a step; the step times both ways,
               for information;
+5i. gemm    -- for information: the card GEMM of a row-parallel
+              product's fp32 partial sum (``partition._DotF32``: bf16
+              inputs, ``torch.mm(..., out_dtype=torch.float32)``) against
+              a bf16 ``torch.mm``, at granite-8b's local row-parallel
+              shapes on a (2, 2) mesh (8192 x 2048 @ 2048 x 4096,
+              attention's wo; 8192 x 7168 @ 7168 x 4096, the MLP's down
+              projection), CUDA events in one call, each beside its bound
+              at 989 TFLOP/s; the fp32 result rounded to bf16 held to the
+              bf16 one (3e-2 of its scale);
 6. breakdown -- for information, after each path: prefill and
               decode-step times with the decode graph (the prefill into
               its static caches) and with the eager step, the graphed
@@ -2735,6 +2744,47 @@ def phase_mesh_train():
                            "from the unmeshed ones")
 
 
+# ------------------------------------------------------------- phase 5i
+# (what, M, K, N): granite-8b's row-parallel products on a (2, 2) rank
+GEMM_SHAPES = (("attention wo", 8192, 2048, 4096),
+               ("MLP down", 8192, 7168, 4096))
+
+
+def phase_gemm():
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for what, m, k, n in GEMM_SHAPES:
+        nb = 2 * (m * k + k * n)
+        sets = [(_rand(gen, (m, k), torch.bfloat16),
+                 _rand(gen, (k, n), torch.bfloat16))
+                for _ in range(n_sets(nb))]
+        a, b = sets[0]
+        got = torch.mm(a, b, out_dtype=torch.float32)
+        want = torch.mm(a, b)
+        err = float((got.to(torch.bfloat16).float() - want.float()).abs()
+                    .max())
+        scale = float(want.float().abs().max())
+        del got, want
+        f32_ms = time_ms(lambda x, y: torch.mm(x, y, out_dtype=torch.float32),
+                         sets)
+        bf16_ms = time_ms(lambda x, y: torch.mm(x, y), sets)
+        flops = 2 * m * k * n
+        ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        bound = {dt: max(ops_ms, (nb + m * n * size) / PEAK_BYTES_S * 1e3)
+                 for dt, size in (("f32", 4), ("bf16", 2))}
+        log(f"[gemm] {what} {m} x {k} @ {k} x {n} bf16: fp32 out "
+            f"{f32_ms:.4f} ms (bound {bound['f32']:.4f} ms, "
+            f"{bound['f32'] / f32_ms:.3f} of it), bf16 out {bf16_ms:.4f} "
+            f"ms (bound {bound['bf16']:.4f} ms, "
+            f"{bound['bf16'] / bf16_ms:.3f} of it); fp32 / bf16 "
+            f"{f32_ms / bf16_ms:.4f}; fp32 out rounded to bf16 against "
+            f"bf16 out: max abs diff {err:.3e} (outputs to {scale:.3e})")
+        if not err <= 3e-2 * scale:
+            raise RuntimeError(f"gemm {what}: the fp32-out GEMM differs "
+                               f"from the bf16 one by {err}")
+        del sets, a, b
+
+
 class _Phase:
     """Logs a phase's wall time when it ends."""
 
@@ -2945,6 +2995,8 @@ def main():
         phase_dryrun()
     with _Phase("5h mesh train"):
         phase_mesh_train()
+    with _Phase("5i gemm"):
+        phase_gemm()
     with _Phase("7 device_ms"):
         phase_device_time([e for es in kernels.values() for e in es])
     log(f"[time] total {time.perf_counter() - t_start:.1f} s")

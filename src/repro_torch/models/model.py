@@ -66,8 +66,9 @@ from repro_torch.kernels._build import is_dtensor
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import ParamSpec
-from repro_torch.models.partition import (constrain, flat_rows, full, like,
-                                          lookup, rows_out, split_last,
+from repro_torch.models.partition import (constrain, flat_rows, full,
+                                          in_this_context, like, lookup,
+                                          rows_out, split_last,
                                           to_placements)
 
 f32 = torch.float32
@@ -418,26 +419,33 @@ def _run_layers(cfg, params_l, x, positions, *, caches=None, decode=False,
             else out_caches
     aux_tot = _zero_aux(cfg, x)
     block = _checkpointed(_apply_block) if remat else _apply_block
+    for group, i, t, kind, p_t in layer_slices(cfg, params_l):
+        if i == 0 and not (decode and cfg.scan_layers):  # as the reference's
+            x = constrain(x, "batch", "seq", "embed")
+        c_t = _index(caches[group][f"pos{i}"], t) if caches else None
+        x, nc, aux = block(p_t, cfg, kind, x, positions, cache=c_t,
+                           decode=decode, make_cache=make_cache,
+                           enc_out=enc_out)
+        if not decode:  # decode_step returns no aux
+            aux_tot = {a: v + aux[a] for a, v in aux_tot.items()}
+        if decode or make_cache:
+            for key, val in nc.items():
+                if val is not c_t[key]:  # written in place already
+                    c_t[key].copy_(val)
+    return x, (caches if (decode or make_cache) else None), aux_tot
+
+
+def layer_slices(cfg, params_l):
+    """(group, i, t, kind, parameters) of every block of the stacked
+    layer groups ``params_l`` in the order ``_run_layers`` drives them:
+    slice ``t`` of the group's stack, at position ``i`` of its pattern
+    (``i`` 0 starts a period)."""
     for group, pattern, n in _groups(cfg):
         layers = [_unstack(params_l[group][f"pos{i}"], n)
                   for i in range(len(pattern))]
         for t in range(n):
-            if not (decode and cfg.scan_layers):  # as the reference's
-                x = constrain(x, "batch", "seq", "embed")
             for i, kind in enumerate(pattern):
-                p_t = layers[i][t]
-                c_t = _index(caches[group][f"pos{i}"], t) if caches \
-                    else None
-                x, nc, aux = block(p_t, cfg, kind, x, positions,
-                                   cache=c_t, decode=decode,
-                                   make_cache=make_cache, enc_out=enc_out)
-                if not decode:  # decode_step returns no aux
-                    aux_tot = {a: v + aux[a] for a, v in aux_tot.items()}
-                if decode or make_cache:
-                    for key, val in nc.items():
-                        if val is not c_t[key]:  # written in place already
-                            c_t[key].copy_(val)
-    return x, (caches if (decode or make_cache) else None), aux_tot
+                yield group, i, t, kind, layers[i][t]
 
 
 def _new_cache(cfg, x, cache_len):
@@ -467,10 +475,11 @@ def _unstack(tree, n):
 
 def _checkpointed(fn):
     """``fn`` under ``torch.utils.checkpoint`` (non-reentrant): its
-    activations are recomputed in the backward instead of kept."""
+    activations are recomputed in the backward instead of kept, under the
+    mesh and act mode of the forward (``partition.in_this_context``)."""
     def run(*args, **kw):
-        return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False, **kw)
+        return torch.utils.checkpoint.checkpoint(
+            in_this_context(fn), *args, use_reentrant=False, **kw)
     return run
 
 

@@ -91,6 +91,22 @@ def use_mesh(mesh):
         _state.mesh = prev
 
 
+def in_this_context(fn):
+    """``fn`` run under the mesh and act mode that are current now,
+    whichever thread calls it later.  A checkpointed block's forward is
+    recomputed inside the backward, and the autograd engine runs a CUDA
+    backward on its own device thread (a CPU or meta one on the caller's),
+    where this module's thread-local state is unset: without this the
+    recompute ran in "dp" mode with no mesh, and ``dot_f32_sum``
+    all-reduced the row-parallel partial sums that "sp" reduce-scatters."""
+    mesh, mode = current_mesh(), act_mode()
+
+    def run(*args, **kw):
+        with use_mesh(mesh), use_act_mode(mode):
+            return fn(*args, **kw)
+    return run
+
+
 def mesh_sizes(mesh) -> dict[str, int]:
     """{axis name: size} of a ``DeviceMesh``, or of any object whose
     ``shape`` is such a dict (a JAX mesh, a duck mesh in tests)."""

@@ -1000,3 +1000,20 @@ def test_check_range_on_a_dtensor_asserts_on_device(cuda):
         out.stderr[-2000:]
     assert out.returncode != 0
     assert "device-side assert" in out.stderr, out.stderr[-2000:]
+
+
+def test_checkpoint_recompute_keeps_act_mode_on_the_card(cuda):
+    """A CUDA backward runs on the autograd engine's device thread, not
+    the caller's: a checkpointed block's recompute there still sees the
+    forward's mesh and act mode (``partition.in_this_context``)."""
+    from repro_torch.models import partition as TP
+    seen = []
+
+    def fn(x):
+        seen.append((TP.current_mesh(), TP.act_mode()))
+        return x.sin()
+    mesh = object()
+    x = torch.ones(3, device=cuda, requires_grad=True)
+    with TP.use_mesh(mesh), TP.use_act_mode("sp"):
+        M._checkpointed(fn)(x).sum().backward()
+    assert seen == [(mesh, "sp")] * 2

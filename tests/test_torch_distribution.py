@@ -610,3 +610,39 @@ def test_sharded_gradients_on_four_gloo_ranks(tmp_path):
         for g, w in zip(got[1:], want[1:]):
             assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max() + 1e-7, \
                 arch
+
+
+def _recompute_probe():
+    """A checkpointed function that records the mesh and act mode it sees
+    each time it runs (the forward, then the backward's recompute)."""
+    seen = []
+
+    def fn(x):
+        seen.append((TPART.current_mesh(), TPART.act_mode()))
+        return x.sin()
+    return TM._checkpointed(fn), seen
+
+
+@pytest.mark.parametrize("where", ["after the context", "another thread"])
+def test_checkpoint_recompute_keeps_mesh_and_act_mode(where):
+    """A checkpointed block's recompute runs under the forward's mesh and
+    act mode wherever the backward runs: after the ``use_mesh`` context
+    has closed, or on another thread, as the autograd engine runs a CUDA
+    backward on its device thread.  Without this the card's "sp" step
+    recomputed each block in "dp" mode with no mesh and all-reduced a
+    row-parallel partial sum that "sp" reduce-scatters."""
+    import threading
+    fn, seen = _recompute_probe()
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 2})
+    x = torch.ones(3, requires_grad=True)
+    with TPART.use_mesh(mesh), TPART.use_act_mode("sp"):
+        y = fn(x).sum()
+        if where == "another thread":
+            t = threading.Thread(target=y.backward)
+            t.start()
+            t.join()
+    if where == "after the context":
+        y.backward()
+    assert seen == [(mesh, "sp")] * 2
+    assert TPART.current_mesh() is None and TPART.act_mode() == "dp"
+    torch.testing.assert_close(x.grad, torch.ones(3).cos())

@@ -22,7 +22,13 @@ tests read the files:
 * a bf16 ``dot`` with a row-parallel weight sums the ranks' partial
   products in fp32 (as the reference's ``preferred_element_type=f32``
   einsum), so it matches the fp32 product rounded once, where a bf16
-  DTensor matmul, rounding each partial sum, does not.
+  DTensor matmul, rounding each partial sum, does not;
+* a reduced bf16 granite-8b ZeRO-1 step in "sp" mode counts the
+  collectives ``launch.dryrun.run_cell`` counts for it, also with its
+  backward on another thread (as the card runs a CUDA backward);
+* ``distributed.parity``'s per-layer check of reduced qwen2.5-32b on a
+  (1, 4) mesh passes with the partial sums in fp32 and fails with them
+  in bf16.
 
 The unmeshed port is held to the reference by
 ``tests/test_torch_training.py``.
@@ -32,9 +38,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import contextlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import socket  # noqa: E402
+import threading  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch.distributed as dist  # noqa: E402
@@ -216,6 +224,96 @@ def _row_parallel(mesh, rank, out_dir):
         float((plain != want).float().mean())]))
 
 
+@contextlib.contextmanager
+def _grads_on_another_thread():
+    """``torch.autograd.grad`` run on a new thread, with the caller's
+    dispatch modes (the dry-run's ``StepCounter``): as the autograd
+    engine runs a CUDA backward on its device thread, which inherits
+    those but no Python thread-local state."""
+    from torch.utils._python_dispatch import (
+        _get_current_dispatch_mode_stack)
+    grad = torch.autograd.grad
+
+    def on_thread(*args, **kw):
+        modes, out = _get_current_dispatch_mode_stack(), {}
+
+        def run():
+            with contextlib.ExitStack() as stack:
+                for m in modes:
+                    stack.enter_context(m)
+                out["grads"] = grad(*args, **kw)
+        t = threading.Thread(target=run)
+        t.start()
+        t.join()
+        return out["grads"]
+    torch.autograd.grad = on_thread
+    try:
+        yield
+    finally:
+        torch.autograd.grad = grad
+
+
+def _collectives(mesh, rank, out_dir):
+    """The collectives of one ZeRO-1 step of reduced bf16 granite-8b in
+    "sp" mode under the dry-run's ``StepCounter`` (rank 0's), with the
+    backward on this thread and on another one; rank 0 saves both."""
+    from repro_torch.launch.dryrun import StepCounter
+    cfg = get_reduced("granite-8b").with_(dtype="bfloat16")
+    step = make_train_step(cfg, lr=LR)
+    spec = TS.batch_pspec(mesh, batch_size=B, extra_dims=1)
+    out = {}
+    for where in ("this thread", "another thread"):
+        params, opt = TS.init_sharded_state(
+            cfg, mesh, torch.Generator().manual_seed(0), "cpu")
+        batch = TS.distribute_tree(_batch(cfg, 30), {"tokens": spec,
+                                                     "labels": spec}, mesh)
+        counter = StepCounter()
+        with contextlib.ExitStack() as stack:
+            if where == "another thread":
+                stack.enter_context(_grads_on_another_thread())
+            with use_mesh(mesh), use_act_mode("sp"), counter:
+                step(params, opt, batch)
+        out[where] = dict(bytes=counter.collectives,
+                          calls=counter.collective_calls)
+    if rank == 0:
+        with open(os.path.join(out_dir, "collectives.json"), "w") as f:
+            json.dump(out, f)
+
+
+def _parity(rank, out_dir):
+    """``parity``'s per-layer check of reduced bf16 qwen2.5-32b on a
+    (1, 4) mesh (8 query and 4 kv heads: one kv head a rank, as the full
+    config's 8 over four cards gives two), from the unmeshed stream each
+    rank computes itself, with the partial sums in fp32 and in bf16;
+    rank 0 saves both runs' gaps."""
+    from repro_torch.distributed import parity as PA
+    mesh = make_debug_mesh((1, 4), device_type="cpu")
+    cfg = get_reduced("qwen2.5-32b").with_(
+        dtype="bfloat16", n_layers=4, n_heads=8, n_kv_heads=4, d_model=128)
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    dparams, _ = TS.init_sharded_state(
+        cfg, mesh, torch.Generator().manual_seed(0), "cpu", optimizer=False)
+    toks = torch.from_numpy(np.random.default_rng(31).integers(
+        0, cfg.vocab, (B, 32)).astype(np.int32))
+    xs, head = PA.unmeshed_stream(cfg, params, toks)
+    wants = dict(enumerate(xs[1:]), head=head)
+    spec = TS.batch_pspec(mesh, batch_size=B, extra_dims=2)
+
+    def place(x):
+        return TS.distribute_tree({"x": x}, {"x": spec}, mesh)["x"]
+    out = {}
+    for sums in ("fp32", "bf16"):
+        with contextlib.ExitStack() as stack:
+            if sums == "bf16":
+                stack.enter_context(PA.bf16_partial_sums())
+            out[sums] = {str(l): PA.gap(y, wants[l]) for l, y in
+                         PA.meshed_outputs(cfg, dparams, mesh,
+                                           lambda l: xs[l], place)}
+    if rank == 0:
+        with open(os.path.join(out_dir, "parity.json"), "w") as f:
+            json.dump(out, f)
+
+
 def _rank(rank, world, port, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
@@ -227,6 +325,8 @@ def _rank(rank, world, port, out_dir):
         _int8(mesh, rank, out_dir)
         _mlp(mesh, rank, out_dir)
         _row_parallel(mesh, rank, out_dir)
+        _collectives(mesh, rank, out_dir)
+        _parity(rank, out_dir)
     finally:
         dist.destroy_process_group()
 
@@ -295,3 +395,51 @@ def test_row_parallel_dot_sums_partials_in_fp32(ranks):
         got, plain = np.load(ranks / f"rowpar-{rank}.npy")
         assert got <= 1e-2, (rank, got)
         assert plain > 10 * max(got, 1e-3), (rank, plain)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("where", ["this thread", "another thread"])
+def test_zero1_step_collectives_match_the_dryrun(ranks, where):
+    """The reduced bf16 granite-8b ZeRO-1 step on (2, 2) in "sp" mode
+    counts, under ``StepCounter``, the all-reduce and reduce-scatter
+    calls and bytes of ``launch.dryrun.run_cell`` with the same config,
+    shape and mesh, also with its backward on another thread (where the
+    card runs it: the checkpointed blocks' recompute must keep "sp").
+    gloo has no all-to-all and runs one as an all-gather of every rank's
+    whole input (then keeps its chunk), so all-gather agrees once each
+    of the dry-run's all-to-alls is added as a call with the bytes of
+    its result times its 2-rank "model" group."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models.config import ShapeSpec
+    full = get_config("granite-8b")
+    red = get_reduced("granite-8b").with_(dtype="bfloat16")
+    over = {f.name: getattr(red, f.name) for f in dataclasses.fields(red)
+            if getattr(full, f.name) != getattr(red, f.name)}
+    dry = D.run_cell("granite-8b", "tiny", shape=ShapeSpec(
+        "tiny", S, B, "train"), mesh_shape=(2, 2), accum_steps=1,
+        act_mode="sp", overrides=over, save=False)["collectives"]
+    got = json.loads((ranks / "collectives.json").read_text())[where]
+    for kind in ("all-reduce", "reduce-scatter"):
+        assert got["calls"][kind] == dry["calls"][kind], kind
+        assert got["bytes"][kind] == dry[kind], kind
+    assert dry["all-to-all"] > 0 and got["bytes"]["all-to-all"] == 0
+    assert got["calls"]["all-gather"] == (dry["calls"]["all-gather"]
+                                         + dry["calls"]["all-to-all"])
+    assert got["bytes"]["all-gather"] == dry["all-gather"] \
+        + 2 * dry["all-to-all"]
+
+
+@pytest.mark.slow
+def test_per_layer_parity_passes_fp32_sums_and_catches_bf16_ones(ranks):
+    """``parity``'s per-layer check on a (1, 4) gloo mesh: every layer and
+    the head within ``LAYER_RTOL`` / ``LAYER_MISMATCH`` of the unmeshed
+    ones with ``dot_f32_sum``, and every layer outside them with the
+    row-parallel partial products summed in bf16."""
+    from repro_torch.distributed import parity as PA
+    got = json.loads((ranks / "parity.json").read_text())
+    assert set(got["fp32"]) == {"0", "1", "2", "3", "head"}
+    assert all(PA.within(g) for g in got["fp32"].values()), got["fp32"]
+    layers = [g for k, g in got["bf16"].items() if k != "head"]
+    assert not any(PA.within(g) for g in layers), got["bf16"]
