@@ -313,13 +313,14 @@ def time_ms(fn, sets, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, sets, match, iters=20, warmup=3):
-    """Device ms per call of fn(*s), a call launching one kernel whose
-    name holds ``match``: those kernels' summed torch.profiler durations
-    over ``iters`` calls, over the number of them the profiler recorded
-    (after an earlier session in the process it may miss some, or all:
-    then up to two more sessions are taken; the count is printed); None
-    if none recorded any."""
+def device_ms(fn, sets, match, iters=20, warmup=3, per_call=1):
+    """Device ms per call of fn(*s), a call launching ``per_call``
+    kernels whose names hold ``match``: those kernels' summed
+    torch.profiler durations over ``iters`` calls, over the calls the
+    profiler recorded (the kernels it recorded over ``per_call``; after
+    an earlier session in the process it may miss some, or all: then up
+    to two more sessions are taken; the count is printed); None if none
+    recorded any."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -335,10 +336,10 @@ def device_ms(fn, sets, match, iters=20, warmup=3):
               if ev.device_type == DeviceType.CUDA and match in ev.name]
         if us:
             break
-    if len(us) != iters:
-        log(f"[device_ms] the profiler recorded {len(us)} of {iters} "
-            f"{match} kernels")
-    return sum(us) / 1e3 / len(us) if us else None
+    if len(us) != iters * per_call:
+        log(f"[device_ms] the profiler recorded {len(us)} of "
+            f"{iters * per_call} {match} kernels")
+    return sum(us) / 1e3 / (len(us) / per_call) if us else None
 
 
 def n_sets(nbytes):
@@ -883,10 +884,90 @@ def rglru_cases(gen, arch):
                   "float32", (make_sets, rglru_scan, "rglru_"))
 
 
+def moe_cases(gen, arch):
+    """The expert-sparse MoE kernels (``moe_decode``) at the path's
+    decode (B rows, full-width random weights of one layer) against their
+    plain version and the batched product (``layers.moe_batched``), bf16
+    and fp32, and at a batch of 16; returns the summary entry, timed in
+    bf16 at B rows beside the batched product as the library time.  The
+    bound counts what these inputs need: the weights of the experts
+    their kept slots reach, x read and y written once."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_decode as MD
+    from repro_torch.models import layers as L
+    B = PATHS[arch]["batch"]
+    main = {}
+    for dt, dn in _dtypes():
+        cfg = get_config(arch).with_(dtype=dn)
+        D = cfg.d_model
+        p = {k: _rand(gen, s.shape, torch.float32).div_(
+            s.shape[-2] ** 0.5).to(dt) for k, s in L.moe_template(cfg).items()}
+        for n in (B, 16):
+            x = _rand(gen, (n, D), dt)
+            _, top_p, top_e, pos, cap, _ = L.moe_route(p, cfg,
+                                                        x.reshape(1, n, D))
+            route = (top_e, pos, top_p)
+            got = MD.moe_decode(x, *route, p["wi"], p["wo"], gs=n, cap=cap)
+            torch.cuda.synchronize()
+            what = f"B={n} S=1 rows per expert {cap}"
+            _check("moe_decode", got, MD.moe_decode_plain(
+                x, *route, p["wi"], p["wo"], gs=n, cap=cap), dn,
+                what + " (plain)")
+            err = _check("moe_decode", got, L.moe_batched(
+                p, x, *route, gs=n, cap=cap), dn, what + " (batched)")
+            if n == B:
+                main[dn] = err
+        del p
+
+    cfg = get_config(arch)
+    D, E, Fe = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_expert_ff
+    dt = cfg.tdtype
+    p = {k: _rand(gen, s.shape, torch.float32).div_(
+        s.shape[-2] ** 0.5).to(dt) for k, s in L.moe_template(cfg).items()}
+
+    def make_sets():
+        out = []
+        for _ in range(8):
+            x = _rand(gen, (B, D), dt)
+            _, top_p, top_e, pos, cap, _ = L.moe_route(p, cfg,
+                                                        x.reshape(1, B, D))
+            out.append((x, top_e, pos, top_p, cap))
+        return out
+
+    def kernel(x, te, ps, tp, cap):
+        return MD.moe_decode(x, te, ps, tp, p["wi"], p["wo"], gs=B, cap=cap)
+
+    sets = make_sets()
+    n0 = MD.moe_decode.launches
+    ms = time_ms(kernel, sets)
+    plain_ms = time_ms(lambda x, te, ps, tp, cap: MD.moe_decode_plain(
+        x, te, ps, tp, p["wi"], p["wo"], gs=B, cap=cap), sets, iters=5,
+        warmup=1)
+    lib_ms = time_ms(lambda x, te, ps, tp, cap: L.moe_batched(
+        p, x, te, ps, tp, gs=B, cap=cap), sets)
+    MD.moe_decode.launches = n0
+    used = [len(set(te[ps < cap].tolist())) for _, te, ps, _, cap in sets]
+    kept = [int((ps < cap).sum()) for _, _, ps, _, cap in sets]
+    es = torch.finfo(dt).bits // 8
+    byts = sum(used) / len(used) * 3 * D * Fe * es + 2 * B * D * es
+    flops = sum(kept) / len(kept) * 2 * 3 * D * Fe
+    log(f"[kernels] moe_decode {arch}: {sum(used) / len(used):.2f} of {E} "
+        f"experts reached by B={B} rows (over {len(sets)} sets), "
+        f"{sum(kept) / len(kept):.2f} of {B * cfg.moe.top_k} slots kept")
+    return _entry("moe_decode", "moe_decode.cu",
+                  "none (the JAX package leaves the MoE layer to XLA)", arch,
+                  f"B={B} S=1 E={E} top-{cfg.moe.top_k} D={D} F={Fe} "
+                  f"rows per expert 1", main[cfg.dtype], ms, plain_ms,
+                  lib_ms, flops, byts, cfg.dtype,
+                  (make_sets, kernel, "moe_decode_", MD.LAUNCHES))
+
+
 def _entry(name, src, replaces, arch, shape, err, ms, plain_ms, lib_ms,
            flops, byts, dtype_name, device_timing):
     """The kernel's summary entry; ``device_timing`` is (make_sets, fn,
-    kernel name match) for phase 7, which fills ``device_ms``."""
+    kernel name match[, kernels a call]) for phase 7, which fills
+    ``device_ms``."""
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     t_bytes = byts / PEAK_BYTES_S * 1e3
     e = {"name": name, "route": "cuda",
@@ -913,10 +994,11 @@ def phase_device_time(entries):
     profiler session precedes their host-clock timings."""
     counters = _kernel_counters()
     for e in entries:
-        make_sets, fn, match = e.pop("_device_timing")
+        make_sets, fn, match, *per_call = e.pop("_device_timing")
         counter = counters[e["name"]]
         n0 = counter.launches
-        e["device_ms"] = device_ms(fn, make_sets(), match)
+        e["device_ms"] = device_ms(fn, make_sets(), match,
+                                   per_call=per_call[0] if per_call else 1)
         counter.launches = n0
         dev = "not measured" if e["device_ms"] is None \
             else f"{e['device_ms']:.4f} ms"
@@ -1044,7 +1126,7 @@ def _train_launches(cfg):
     fwd = 2 if cfg.remat == "block" else 1
     return {"flash_attention": per["flash_attention"] * fwd,
             "decode_attention": 0,
-            "rglru_scan": per["rglru_scan"] * (fwd + 1)}
+            "rglru_scan": per["rglru_scan"] * (fwd + 1), "moe_decode": 0}
 
 
 def _train_batch(cfg, B, S, seed):
@@ -1324,36 +1406,46 @@ def phase_mesh_torch():
 def _kernel_counters():
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_decode import moe_decode
     from repro_torch.kernels.rglru_scan import rglru_scan
     return {"flash_attention": flash_attention,
-            "decode_attention": decode_attention, "rglru_scan": rglru_scan}
+            "decode_attention": decode_attention, "rglru_scan": rglru_scan,
+            "moe_decode": moe_decode}
 
 
-def _per_call(cfg):
+def _per_call(cfg, batch=None):
     """Kernel launches of one call, from the config's layers: flash and
     rglru_scan in a prefill or forward (flash once per attention layer,
     cross-attention layer and encoder layer), decode in a decode step
     (once per attention and cross-attention layer, but for the global
-    layers of an int8 KV cache, which decode in plain PyTorch).  mLSTM
-    and sLSTM blocks launch none."""
+    layers of an int8 KV cache, which decode in plain PyTorch), and the
+    MoE kernels in an unmeshed decode step of ``batch`` rows where that
+    gives at most ``R_MAX`` rows per expert (every MoE layer; none with
+    no batch given).  mLSTM and sLSTM blocks launch none."""
+    from repro_torch.kernels import moe_decode as MD
+    from repro_torch.models import layers as L
     from repro_torch.models import model as M
     pat, n_per, n_rem = M.layer_layout(cfg)
     kinds = list(pat) * n_per + list(pat[:n_rem])
     n_attn = sum(k.startswith("attn") for k in kinds)
     n_quant = kinds.count("attn_global") if cfg.kv_quant == "int8" else 0
     n_cross = len(kinds) if cfg.encoder_layers else 0
+    sparse = cfg.moe is not None and batch is not None \
+        and L.moe_rows(cfg, batch) <= MD.R_MAX
     return {"flash_attention": n_attn + n_cross + cfg.encoder_layers,
             "decode_attention": n_attn - n_quant + n_cross,
-            "rglru_scan": kinds.count("rglru")}
+            "rglru_scan": kinds.count("rglru"),
+            "moe_decode": MD.LAUNCHES * cfg.n_layers if sparse else 0}
 
 
-def _want(cfg, forwards, steps):
+def _want(cfg, forwards, steps, batch=None):
     """Launches of ``forwards`` prefills or forwards and ``steps`` decode
-    steps."""
-    per = _per_call(cfg)
+    steps of ``batch`` rows."""
+    per = _per_call(cfg, batch)
     return {"flash_attention": per["flash_attention"] * forwards,
             "decode_attention": per["decode_attention"] * steps,
-            "rglru_scan": per["rglru_scan"] * forwards}
+            "rglru_scan": per["rglru_scan"] * forwards,
+            "moe_decode": per["moe_decode"] * steps}
 
 
 def phase_serve(arch, entries):
@@ -1414,9 +1506,9 @@ def phase_serve(arch, entries):
     got = {name: fn.launches for name, fn in counters.items()}
 
     n_gen = sum(e != "score" for e in requests)
-    want = _want(cfg, len(requests), (NEW - 1) * n_gen)
+    want = _want(cfg, len(requests), (NEW - 1) * n_gen, B)
     log(f"[serve] {arch} launches {got} (want {want}: per prefill or "
-        f"forward / decode step {_per_call(cfg)}, x {len(requests)} "
+        f"forward / decode step {_per_call(cfg, B)}, x {len(requests)} "
         f"requests / {NEW - 1} steps x {n_gen} generating requests)")
     if got != want:
         raise RuntimeError(f"{arch}: the main path did not run through the "
@@ -1524,9 +1616,9 @@ def phase_kv_quant(eng):
         fn.launches = 0
     outs8 = [q8.serve("generate", t, max_new_tokens=NEW)[0] for t in reqs]
     got = {n: fn.launches for n, fn in counters.items()}
-    want = _want(cfg, len(reqs), (NEW - 1) * len(reqs))
+    want = _want(cfg, len(reqs), (NEW - 1) * len(reqs), B)
     log(f"[int8] {cfg.name} launches {got} (want {want}: per prefill / "
-        f"decode step {_per_call(cfg)})")
+        f"decode step {_per_call(cfg, B)})")
     if got != want:
         raise RuntimeError(f"int8: launches {got}, want {want}")
     counts = dict(got)
@@ -1645,7 +1737,8 @@ def phase_launcher(arch):
         # each built warm-up ran one prefill or forward, and a generating
         # entry's one decode step
         want = _want(cfg, len(workload) + len(built),
-                     (NEW - 1) * n_gen + sum(e != "score" for e in built))
+                     (NEW - 1) * n_gen + sum(e != "score" for e in built),
+                     spec["batch"])
         if got != want:
             raise RuntimeError(f"launcher {name}: launches {got}, want "
                                f"{want}")
@@ -2056,8 +2149,8 @@ def phase_pool():
         n_entries = len(ServingEngine(cfg, device="cuda").entries())
         for n, v in _want(cfg, n_entries * n_built + seq.count(arch),
                           (n_entries - 1) * n_built
-                          + (PATHS[arch]["new"] - 1) * seq.count(arch)
-                          ).items():
+                          + (PATHS[arch]["new"] - 1) * seq.count(arch),
+                          PATHS[arch]["batch"]).items():
             want[n] += v
     st = pool.stats()
     log(f"[pool] stats hits {st['hits']} misses {st['misses']} evictions "
@@ -2173,7 +2266,7 @@ def phase_batcher():
         return logits.argmax(-1).to(torch.int32)[:, None], caches
 
     counters = _kernel_counters()
-    per = _per_call(cfg)
+    per = _per_call(cfg, n_slots)
     results = {}
     for name in ("graphed", "eager"):
         caches = M.init_cache(cfg, n_slots, cache_len, "cuda")
@@ -2197,7 +2290,8 @@ def phase_batcher():
         got = {n: fn.launches for n, fn in counters.items()}
         want = {"flash_attention": per["flash_attention"] * len(reqs),
                 "decode_attention": per["decode_attention"] * st["steps"],
-                "rglru_scan": 0}
+                "rglru_scan": 0,
+                "moe_decode": per["moe_decode"] * st["steps"]}
         log(f"[batcher] granite-8b {name}: {st['finished']} finished in "
             f"{st['steps']} steps, {wall:.4f} s; mean_latency_s "
             f"{st['mean_latency_s']:.4f} p99_latency_s "
@@ -2564,7 +2658,7 @@ def phase_mesh():
                     meshed.append(_serve_eager(cfg, dparams, toks, P + NEW,
                                                NEW, place))
                 got = {n: fn.launches for n, fn in counters.items()}
-                want = _want(cfg, 1, NEW - 1)
+                want = _want(cfg, 1, NEW - 1)  # meshed: no MoE kernels
                 log(f"[mesh] run {i}: launches {got} (want {want})")
                 if got != want:
                     raise RuntimeError("mesh: the sharded path did not run "
@@ -2863,7 +2957,8 @@ def main():
                      "hd 128 G 1 S 24")]),
                 decode_cases(gen, "olmoe-1b-7b", "partly filled", [
                     (2, 4, 1, 33, 128, None, None, "hd 128 G 1 ragged"),
-                    (2, 3, 1, 77, 128, None, None, "hd 128 G 1 S 77")])],
+                    (2, 3, 1, 77, 128, None, None, "hd 128 G 1 S 77")]),
+                moe_cases(gen, "olmoe-1b-7b")],
             "recurrentgemma-2b": [
                 flash_cases(gen, "recurrentgemma-2b", [
                     (1, 10, 1, 100, 100, 256, True, 48, None,

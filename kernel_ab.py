@@ -15,6 +15,13 @@ twice: CUDA events around the calls (``ms``, which includes a wrapper's
 host path where that is the longer) and the kernel's own device time
 under torch.profiler (``device ms``).  Prints the medians and every
 reading, then the card's name and power limit.
+
+On an MoE arch it then times, on this tree alone, the MoE layer's two
+paths after one ``moe_route``: the expert-sparse kernels
+(``moe_decode``) and the batched product (``layers.moe_batched``), each
+captured in a CUDA graph, at the path's batch of 4 and at each row
+count per expert the kernels hold (1, 2, 4, 8).  Where the kernels stop
+winning is ``moe_decode.R_MAX``.
 """
 
 from __future__ import annotations
@@ -48,6 +55,75 @@ def load_tree(root: Path) -> dict:
             del sys.modules[k]
         sys.modules.update(saved)
     return {n: getattr(m, n) for n, m in mods.items()}
+
+
+def moe_crossover(arch, batch=4):
+    """The MoE layer of ``arch`` at full width after one ``moe_route`` of
+    random rows through random bf16 weights: ``moe_decode`` against
+    ``moe_batched``, each call captured in a CUDA graph as the decode
+    step is (replays timed by CUDA events, in turns, three rounds; weight
+    copies past the L2 cache), at ``batch`` rows and at the most rows
+    that give each instance's rows per expert (the most experts
+    reached).  Prints the medians, the experts the rows reach and the
+    least time their weights take at 3.35 TB/s."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_decode as MD
+    from repro_torch.models import layers as L
+    cfg = get_config(arch)
+    D, E, Fe = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_expert_ff
+    dt = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w_bytes = 3 * E * D * Fe * 2
+    ps = [{k: cs._rand(gen, s.shape, dt) / s.shape[-2] ** 0.5
+           for k, s in L.moe_template(cfg).items()}
+          for _ in range(max(1, -(-2 * cs.L2_BYTES // w_bytes)))]
+    rows = [L.moe_rows(cfg, n) for n in range(1, cfg.moe_group + 1)]
+    ns = {batch} | {len(rows) - rows[::-1].index(R)
+                    for R in MD.ROW_INSTANCES if R in rows}
+    for n in sorted(ns):
+        gs = min(cfg.moe_group, n)
+        sets, used = [], []
+        for i in range(8):
+            p = ps[i % len(ps)]
+            x = cs._rand(gen, (n, D), dt)
+            _, top_p, top_e, pos, cap, _ = L.moe_route(
+                p, cfg, x.reshape(n // gs, gs, D))
+            used.append(int(top_e[pos < cap].unique().numel()))
+            sets.append((p, x, top_e, pos, top_p))
+        fns = {
+            "kernel": lambda p, x, te, ps_, tp: MD.moe_decode(
+                x, te, ps_, tp, p["wi"], p["wo"], gs=gs, cap=cap),
+            "batched": lambda p, x, te, ps_, tp: L.moe_batched(
+                p, x, te, ps_, tp, gs=gs, cap=cap)}
+        graphs = {}
+        for k, fn in fns.items():
+            graphs[k] = []
+            for s in sets:
+                fn(*s)  # warm-up: the kernels' counter is made here
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g):
+                    fn(*s)
+                graphs[k].append((g,))
+        got = {k: [] for k in fns}
+        for _ in range(3):
+            for k in ("batched", "kernel", "kernel", "batched"):
+                got[k].append(cs.time_ms(lambda g: g.replay(), graphs[k],
+                                         iters=40))
+        med = {k: sorted(v)[len(v) // 2] for k, v in got.items()}
+        reach = sum(used) / len(used)
+        bound = reach * 3 * D * Fe * 2 / cs.PEAK_BYTES_S * 1e3
+        print(f"[moe] {arch} {n} tokens: rows per expert "
+              f"{L.moe_rows(cfg, n)} (cap {cap}): kernel "
+              f"{med['kernel']:.5f} ms, batched {med['batched']:.5f} ms "
+              f"(graphed, medians; all {[round(x, 5) for x in got['kernel']]}"
+              f" / {[round(x, 5) for x in got['batched']]}); {reach:.2f} of "
+              f"{E} experts reached, their weights {bound:.5f} ms at "
+              f"3.35 TB/s ({100 * bound / med['kernel']:.1f}% of the "
+              f"kernel's time)", flush=True)
+        del graphs
 
 
 def main():
@@ -137,6 +213,8 @@ def main():
                 med = f"{ms[len(ms) // 2]:.5f}" if ms else "not measured"
                 print(f"[ab] {name} {tree} {what}: median {med}, all "
                       f"{[round(x, 5) for x in ms]}", flush=True)
+    if get_config(args.arch).moe is not None:
+        moe_crossover(args.arch)
     print(cs.nvidia_smi())
 
 

@@ -42,7 +42,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import moe_decode, ops
 from repro_torch.kernels._build import is_dtensor
 from repro_torch.kernels.loops import time_loop
 from repro_torch.models.config import ArchConfig
@@ -601,7 +601,7 @@ def moe_route(p, cfg, xg):
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = _topk(probs, k)
     top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
-    cap = max(int(e.capacity_factor * gs * k / E), 1)
+    cap = moe_capacity(cfg, gs)
     flat = merge_last(top_e, 2)[:, None]  # (G, 1, gs*k)
     experts = like(flat, torch.arange(E, device=xg.device)[:, None])
     onehot = (flat == experts).to(torch.int32)  # (G, E, gs*k)
@@ -611,6 +611,20 @@ def moe_route(p, cfg, xg):
     pos = before.gather(1, flat).reshape(G, gs, k)
     counts = onehot.sum((0, 2), dtype=torch.int32)
     return probs, top_p, top_e, pos, cap, counts
+
+
+def moe_capacity(cfg, gs: int) -> int:
+    """Each expert's queue length in a group of ``gs`` tokens."""
+    e = cfg.moe
+    return max(int(e.capacity_factor * gs * e.top_k / e.n_experts), 1)
+
+
+def moe_rows(cfg, n: int, group_size=None) -> int:
+    """Rows per expert (groups x queue length) of a ``moe_apply`` call
+    on ``n`` rows: what ``moe_decode.takes_kernel`` compares with
+    ``R_MAX``."""
+    gs = min(group_size or cfg.moe_group, n)
+    return (n // gs) * moe_capacity(cfg, gs)
 
 
 def _topk(x, k):
@@ -663,11 +677,11 @@ def moe_apply(p, cfg, x, group_size=None):
     x: (B, S, D).  Returns (y, aux): aux carries the router load (the
     per-expert share of the routed (token, slot) pairs, dropped ones
     included: the Level-B utilization signal) and the load-balancing
-    loss.  Kept rows are gathered into an (E, G*C, D) buffer (zeros in
-    empty slots), both expert products run batched over E, and each
-    token sums its kept slots' outputs weighted by top_p in fp32.  The
-    gather equals the reference's one-hot dispatch exactly (a one-hot
-    sum has one term); only the combine's summation order differs.
+    loss.  After ``moe_route``, a call with at most
+    ``moe_decode.R_MAX`` rows per expert on a CUDA tensor (decode) runs
+    the expert-sparse kernels (``moe_decode.takes_kernel`` says when),
+    which read only the experts holding a kept slot; every other call
+    (prefill, training, the meshed MoE, the CPU) runs ``moe_batched``.
     """
     e = cfg.moe
     B, S, D = x.shape
@@ -677,7 +691,36 @@ def moe_apply(p, cfg, x, group_size=None):
     x = flat_rows(x)
     xg = x.reshape(G, gs, D)
     probs, top_p, top_e, pos, cap, counts = moe_route(p, cfg, xg)
+    if moe_decode.takes_kernel(G * cap, x, p["wi"], p["wo"]):
+        y = moe_decode.moe_decode(x.reshape(N, D), top_e, pos, top_p,
+                                  p["wi"], p["wo"], gs=gs, cap=cap)
+    else:
+        y = moe_batched(p, x.reshape(N, D), top_e, pos, top_p, gs=gs,
+                        cap=cap)
 
+    load = counts.to(f32) / (N * k)
+    importance = probs.mean((0, 1))
+    aux = {"expert_load": load,
+           "moe_aux_loss": E * torch.sum(load * importance)}
+    # on a DTensor the output's gradient comes back sequence-sharded in
+    # "sp" mode: gathered (``rows_out``) before the view back to rows
+    return rows_out(y.reshape(B, S, D)), aux
+
+
+def moe_batched(p, x, top_e, pos, top_p, *, gs, cap):
+    """The MoE layer's expert products and combine after ``moe_route``,
+    batched over every expert.  x: (N, D); the routing and the result as
+    ``moe_decode.moe_decode``'s.
+
+    Kept rows are gathered into an (E, G*C, D) buffer (zeros in empty
+    slots), both expert products run batched over E, and each token sums
+    its kept slots' outputs weighted by top_p in fp32.  The gather
+    equals the reference's one-hot dispatch exactly (a one-hot sum has
+    one term); only the combine's summation order differs.
+    """
+    N, D = x.shape
+    E, k = p["wi"].shape[0], top_e.shape[-1]
+    G = N // gs
     # flat (e, g, c) slot of each (token, k); dropped ones go to a spare
     # row past the E*G*C buffer
     grp = like(x, torch.arange(G, device=x.device)[:, None, None])
@@ -685,7 +728,7 @@ def moe_apply(p, cfg, x, group_size=None):
     slot = torch.where(keep, (top_e * G + grp) * cap + pos, E * G * cap)
     slot = slot.reshape(N * k)
     tok = like(x, torch.arange(N * k, device=x.device) // k)
-    buf = _scatter_rows(x.reshape(N, D)[tok], slot, E * G * cap + 1)
+    buf = _scatter_rows(x[tok], slot, E * G * cap + 1)
     # the dispatched rows: experts over the EP axis, token groups over DP
     # (the reference's constraint on its one-hot dispatch's output)
     xin = constrain(buf[:-1].view(E, G, cap, D), "experts", "batch", None,
@@ -701,15 +744,7 @@ def moe_apply(p, cfg, x, group_size=None):
     # partial sums are reduced (``lookup``)
     rows = lookup(hout.view(E * G * cap, D),
                   slot.clamp_max(E * G * cap - 1)).view(N, k, D)
-    y = (rows * w).sum(1).to(x.dtype)
-
-    load = counts.to(f32) / (N * k)
-    importance = probs.mean((0, 1))
-    aux = {"expert_load": load,
-           "moe_aux_loss": E * torch.sum(load * importance)}
-    # on a DTensor the output's gradient comes back sequence-sharded in
-    # "sp" mode: gathered (``rows_out``) before the view back to rows
-    return rows_out(y.reshape(B, S, D)), aux
+    return (rows * w).sum(1).to(x.dtype)
 
 
 # --------------------------------------------------------------------------

@@ -61,7 +61,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels import moe_decode
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import moe_rows
 from repro_torch.models.model import (
     _head, decode_step, forward, init_cache, init_params, prefill,
 )
@@ -300,7 +302,9 @@ class ServingEngine:
 
         The ``serve`` span (lock wait included) carries the request's
         shape and, for a generating entry, the device time of its
-        prefill and of its decode steps (``_Stamps``).
+        prefill and of its decode steps (``_Stamps``) and, where the
+        decode step runs the expert-sparse MoE kernels, the experts they
+        read (``_expert_counter``).
         """
         t0 = time.perf_counter()
         shape = np.shape(tokens)
@@ -340,6 +344,8 @@ class ServingEngine:
         pos0 = self._pos0(entry, toks.shape[1])
         out = [nxt]
         tok = nxt[:, None]
+        counter = self._expert_counter() if sp.recording else None
+        read0 = None if counter is None else counter.clone()
         st.mark()
         for i in range(max_new_tokens - 1):
             if graph is not None:
@@ -353,7 +359,24 @@ class ServingEngine:
         st.mark()
         res = torch.stack(out, dim=1).cpu().numpy()  # synchronises
         st.report(sp, max_new_tokens - 1)
+        if counter is not None:
+            sp.set("moe_experts_read", int(counter.item() - read0.item()))
+            sp.set("moe_expert_slots", self.cfg.moe.n_experts
+                   * self.cfg.n_layers * (max_new_tokens - 1))
         return res
+
+    def _expert_counter(self):
+        """``moe_decode.experts_read`` of this engine's card where its
+        decode step runs the expert-sparse MoE kernels (a CUDA MoE engine
+        whose batch gives at most ``moe_decode.R_MAX`` rows per expert),
+        else None.  The ``serve`` span then carries
+        ``moe_experts_read``, the counter's increase over the decode
+        steps, and ``moe_expert_slots``, experts x MoE layers x steps."""
+        cfg = self.cfg
+        if cfg.moe is None or self.device.type != "cuda" \
+                or moe_rows(cfg, self.B) > moe_decode.R_MAX:
+            return None
+        return moe_decode.experts_read(self.device)
 
     # ----------------------------------------- utilization / SLIMSTART
     def _account_experts(self, load: np.ndarray):

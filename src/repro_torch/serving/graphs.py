@@ -47,10 +47,11 @@ import torch
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   take_scratch)
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.moe_decode import moe_decode
 from repro_torch.kernels.rglru_scan import rglru_scan
 
 # the kernel wrappers whose ``launches`` a replay adds to
-COUNTED = (flash_attention, decode_attention, rglru_scan)
+COUNTED = (flash_attention, decode_attention, rglru_scan, moe_decode)
 _CAPTURE_LOCK = threading.Lock()
 
 

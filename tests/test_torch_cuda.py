@@ -8,6 +8,8 @@ port's requirements are installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -21,6 +23,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain,
 )
+from repro_torch.kernels import moe_decode as MD  # noqa: E402
 from repro_torch.kernels.rglru_scan import (  # noqa: E402
     rglru_scan, rglru_scan_plain,
 )
@@ -400,6 +403,13 @@ def test_rglru_kernel_unaligned_start(cuda, dtype):
 # the int8 KV cache on gemma2-9b, beside its bf16 one
 INT8 = pytest.param("gemma2-9b", 20, {"kv_quant": "int8"},
                     id="gemma2-9b-int8")
+# reduced olmoe at its published capacity 1.25: one row per expert at a
+# decode batch of 2, so its decode step runs the expert-sparse kernels,
+# with drops
+SPARSE_MOE = {"moe": dataclasses.replace(get_reduced("olmoe-1b-7b").moe,
+                                          capacity_factor=1.25)}
+OLMOE_SPARSE = pytest.param("olmoe-1b-7b", 6, SPARSE_MOE,
+                            id="olmoe-1b-7b-cap1.25")
 
 
 @pytest.mark.parametrize("arch,n_dec,cfg_kw", [("granite-8b", 5, {}),
@@ -412,7 +422,8 @@ INT8 = pytest.param("gemma2-9b", 20, {"kv_quant": "int8"},
                                                ("pixtral-12b", 5, {}),
                                                ("gemma2-9b", 20, {}),
                                                ("gemma3-27b", 20, {}),
-                                               ("xlstm-350m", 5, {}), INT8])
+                                               ("xlstm-350m", 5, {}), INT8,
+                                               OLMOE_SPARSE])
 def test_reduced_model_cuda_matches_cpu(cuda, arch, n_dec, cfg_kw):
     """recurrentgemma, gemma2 and gemma3 decode past their window of 16,
     so the ring wraps; whisper runs its encoder over random frames and
@@ -499,24 +510,131 @@ def test_moe_apply_cuda_matches_cpu(cuda, B, S, group, dtype):
     torch.testing.assert_close(ag["expert_load"].cpu(), ac["expert_load"])
 
 
+# ---------------------------------------------------------- moe_decode
+def _moe_layer(cuda, arch, dtype, B, seed):
+    """Full-width random MoE weights of ``arch`` (normal / sqrt(fan-in))
+    and B decode rows, drawn on the card, with their routing."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).with_(
+        dtype="float32" if dtype == torch.float32 else "bfloat16")
+    gen = torch.Generator(cuda).manual_seed(seed)
+    p = {k: (torch.randn(s.shape, generator=gen, device=cuda)
+             / s.shape[-2] ** 0.5).to(dtype)
+         for k, s in L.moe_template(cfg).items()}
+    x = torch.randn((B, cfg.d_model), generator=gen, device=cuda).to(dtype)
+    gs = min(cfg.moe_group, B)
+    _, top_p, top_e, pos, cap, _ = L.moe_route(
+        p, cfg, x.reshape(B // gs, gs, cfg.d_model))
+    return cfg, p, x, (top_e, pos, top_p), gs, cap
+
+
+def _both_paths(p, x, route, gs, cap):
+    got = MD.moe_decode(x, *route, p["wi"], p["wo"], gs=gs, cap=cap)
+    want = L.moe_batched(p, x, *route, gs=gs, cap=cap)
+    return got, want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [4, 16])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-1b-a400m"])
+def test_moe_decode_matches_batched_path(cuda, arch, B, dtype):
+    """The expert-sparse kernels against the batched product on the same
+    routing, at full width (olmoe: rows per expert 1 and 2; granite-moe:
+    1 and 5), and moe_apply taking the kernels where its rows allow."""
+    cfg, p, x, route, gs, cap = _moe_layer(cuda, arch, dtype, B, B)
+    got, want = _both_paths(p, x, route, gs, cap)
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    plain = MD.moe_decode_plain(x, *route, p["wi"], p["wo"], gs=gs,
+                                cap=cap)
+    torch.testing.assert_close(got.float(), plain.float(), **TOL[dtype])
+    n0 = MD.moe_decode.launches
+    with torch.no_grad():
+        y, _ = L.moe_apply(p, cfg, x[:, None])
+    rows = L.moe_rows(cfg, B)
+    assert MD.moe_decode.launches - n0 == \
+        (MD.LAUNCHES if rows <= MD.R_MAX else 0)
+    torch.testing.assert_close(y[:, 0].float(), got.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_decode_rigged_router_skips_dropped_slots(cuda, dtype,
+                                                      monkeypatch):
+    """Every token routed to experts 0..7 (olmoe, B 16: 2 of 16 slots
+    kept in each), the scratch filled with NaN first: a dropped slot and
+    an expert with no kept row (63) are skipped, never multiplied by 0,
+    so the output is finite, equal to the batched path's, and 0 for a
+    token whose every slot was dropped."""
+    cfg, p, x, _, gs, cap = _moe_layer(cuda, "olmoe-1b-7b", dtype, 16, 5)
+    D, E = cfg.d_model, cfg.moe.n_experts
+    router = torch.randn(p["router"].shape, device=cuda) * 1e-3
+    router[0, :8] = torch.arange(8, 0, -1, device=cuda, dtype=torch.float32)
+    p["router"] = router.to(dtype)
+    x = x.clone()
+    x[:, 0] = 10.0
+    _, top_p, top_e, pos, cap, _ = L.moe_route(p, cfg, x.reshape(1, 16, D))
+    assert torch.equal(top_e.reshape(16, 8).sort(-1).values.cpu(),
+                       torch.arange(8).expand(16, 8))
+    keep = (pos < cap).reshape(16, 8)
+    assert int(keep.sum()) == 8 * cap < 16 * 8
+    route = (top_e, pos, top_p)
+
+    def nan_scratch(E_, R, Fe, D_, dt, device):
+        return (torch.full((E_, R, Fe), float("nan"), dtype=dt,
+                           device=device),
+                torch.full((E_, R, D_), float("nan"), device=device))
+    monkeypatch.setattr(MD, "_scratch", nan_scratch)
+    got, want = _both_paths(p, x, route, gs, cap)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    none_kept = ~keep.any(-1)
+    assert none_kept.any()
+    assert (got[none_kept] == 0).all()
+    assert E - 1 not in top_e[pos < cap].tolist()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_decode_two_calls_bitwise_equal(cuda, dtype):
+    _, p, x, route, gs, cap = _moe_layer(cuda, "olmoe-1b-7b", dtype, 4, 7)
+    a = MD.moe_decode(x, *route, p["wi"], p["wo"], gs=gs, cap=cap)
+    b = MD.moe_decode(x, *route, p["wi"], p["wo"], gs=gs, cap=cap)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch,B", [("olmoe-1b-7b", 4), ("olmoe-1b-7b", 16),
+                                    ("granite-moe-1b-a400m", 16)])
+def test_moe_decode_counter_counts_distinct_kept_experts(cuda, arch, B):
+    _, p, x, route, gs, cap = _moe_layer(cuda, arch, torch.bfloat16, B, 11)
+    counter = MD.experts_read(cuda)
+    before = int(counter.item())
+    MD.moe_decode(x, *route, p["wi"], p["wo"], gs=gs, cap=cap)
+    top_e, pos, _ = route
+    want = len(set(top_e[pos < cap].tolist()))
+    assert int(counter.item()) - before == want
+
+
 # ------------------------------------------------------------- serving
 def _kernel_counters():
     from repro_torch.serving.graphs import COUNTED
     return {f.__name__: f for f in COUNTED}
 
 
-def _per_step(cfg):
-    """Kernel launches of one decode step: decode once per attention and
-    cross-attention layer, but for the global layers of an int8 KV cache
-    (plain PyTorch); none for mLSTM / sLSTM blocks."""
+def _per_step(cfg, B):
+    """Kernel launches of one decode step of batch B: decode once per
+    attention and cross-attention layer, but for the global layers of an
+    int8 KV cache (plain PyTorch); none for mLSTM / sLSTM blocks; the MoE
+    kernels' launches per MoE layer where B rows give at most R_MAX rows
+    per expert."""
     pat, n_per, n_rem = M.layer_layout(cfg)
     kinds = list(pat) * n_per + list(pat[:n_rem])
     n_attn = sum(k.startswith("attn") for k in kinds)
     if cfg.kv_quant == "int8":
         n_attn -= kinds.count("attn_global")
     n_cross = len(kinds) if cfg.encoder_layers else 0
+    moe = cfg.moe is not None and L.moe_rows(cfg, B) <= MD.R_MAX
     return {"flash_attention": 0, "decode_attention": n_attn + n_cross,
-            "rglru_scan": 0}
+            "rglru_scan": 0,
+            "moe_decode": MD.LAUNCHES * cfg.n_layers if moe else 0}
 
 
 @pytest.mark.parametrize("arch,n_dec,cfg_kw", [("granite-8b", 6, {}),
@@ -529,7 +647,8 @@ def _per_step(cfg):
                                                ("pixtral-12b", 6, {}),
                                                ("gemma2-9b", 20, {}),
                                                ("gemma3-27b", 20, {}),
-                                               ("xlstm-350m", 6, {}), INT8])
+                                               ("xlstm-350m", 6, {}), INT8,
+                                               OLMOE_SPARSE])
 def test_decode_graph_matches_eager_step(cuda, arch, n_dec, cfg_kw):
     """The captured decode step, replayed over a prefill written into its
     static caches, against the eager step on a copy of the same caches:
@@ -560,10 +679,12 @@ def test_decode_graph_matches_eager_step(cuda, arch, n_dec, cfg_kw):
                         params, static, B, cuda)
     # the warm-up step launched; the capture did not
     assert {k: f.launches - n0[k] for k, f in counters.items()} == \
-        _per_step(cfg)
-    assert graph.launches() == _per_step(cfg)
+        _per_step(cfg, B)
+    assert graph.launches() == _per_step(cfg, B)
+    n_moe = counters["moe_decode"].launches
     logits, _, _ = M.prefill(cfg, params, toks, cache_len=cache_len,
                              caches=static, **ex)
+    assert counters["moe_decode"].launches == n_moe  # never at prefill
     eager = {k: {p: {n: t.clone() for n, t in c.items()}
                  for p, c in g.items()} for k, g in static.items()}
     tok_g = tok_e = logits.argmax(-1).to(torch.int32)[:, None]
@@ -572,7 +693,7 @@ def test_decode_graph_matches_eager_step(cuda, arch, n_dec, cfg_kw):
         n0 = {k: f.launches for k, f in counters.items()}
         tok_g, lg = graph(tok_g, pos)
         assert {k: f.launches - n0[k] for k, f in counters.items()} == \
-            _per_step(cfg)
+            _per_step(cfg, B)
         le, eager = M.decode_step(cfg, params, tok_e, pos, eager)
         tok_e = le.argmax(-1).to(torch.int32)[:, None]
         torch.testing.assert_close(lg, le, rtol=2e-3, atol=2e-3,
@@ -1089,6 +1210,38 @@ def test_serve_span_device_times_on_a_graphed_engine(cuda):
         inside = sum(max(0, min(e, serve.end_ns) - max(s, serve.start_ns))
                      for s, e in dev)
         assert inside >= 0.99 * total, (inside, total)
+    finally:
+        tracing.configure_tracing(enabled=False)
+        tr.clear()
+
+
+def test_serve_span_counts_the_experts_a_graphed_moe_decode_reads(cuda):
+    """A graphed reduced-olmoe engine at capacity 1.25 and batch 2 (one
+    row per expert: its decode step runs the expert-sparse kernels): the
+    ``serve`` span's ``moe_experts_read`` is the counter's increase over
+    the decode steps, between one expert a layer a step (two tokens,
+    top-2, each kept slot's expert) and all of them; ``moe_expert_slots``
+    is experts x layers x steps."""
+    from repro_torch.obs import tracing
+    from repro_torch.serving import ServingEngine
+    cfg = get_reduced("olmoe-1b-7b").with_(**SPARSE_MOE)
+    tr = tracing.get_tracer()
+    tr.clear()
+    try:
+        eng = ServingEngine(cfg, seed=0, batch_size=2, prefill_len=16,
+                            max_len=48, device="cuda")
+        eng.cold_start()
+        toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 16))
+        counter = MD.experts_read(cuda)
+        tracing.configure_tracing(enabled=True)
+        before = int(counter.item())
+        eng.serve("generate", toks, max_new_tokens=9)
+        read = int(counter.item()) - before
+        (serve,) = [s for s in tr.snapshot() if s.name == "serve"]
+        steps, E = 8, cfg.moe.n_experts
+        assert serve.attrs["moe_expert_slots"] == E * cfg.n_layers * steps
+        assert serve.attrs["moe_experts_read"] == read
+        assert cfg.n_layers * steps <= read <= E * cfg.n_layers * steps
     finally:
         tracing.configure_tracing(enabled=False)
         tr.clear()
