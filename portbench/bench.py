@@ -3,8 +3,15 @@
 Everything particular to a configuration, a traffic mix or a metric is
 a file found by the name ``BENCHMARK.json`` gives it:
 
-- ``configs/<config>.json``: the configuration's numbers (checked
-  against the program's own) and its source;
+- ``configs/<config>.json``: the configuration's numbers (each that
+  names a field of the program's config checked against it) and its
+  source;
+- ``reference/<stem>.py``, where the configuration file names it by
+  ``"reference": "<stem>"``: the configuration's plain reference,
+  ``draw(cfg, seed, device)`` and ``logits(...)``, and optionally its
+  own work counts (``body_params``, ``attn_flops``, ``flash_call``,
+  ``decode_call``); without the key, ``reference/weights.py`` and
+  ``reference/model.py`` and the shared ``metrics/counts.py``;
 - ``traffic/<mix>.json``: the mix's parameters, and the generator it
   names, ``traffic/gen_<generator>.py`` (``schedule(mix, seconds)``);
 - ``metrics/<metric>.py``, or ``metrics/<part before the first dot>.py``:
@@ -26,6 +33,8 @@ import sys
 import time
 import traceback
 from pathlib import Path
+
+from portbench import reference
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")  # top-level module names
@@ -72,6 +81,10 @@ class Cell:
         conf = next(c for c in bench["configs"] if c["name"] == w["config"])
         pb = root / "portbench"
         self.cfg = load_json(root / conf["file"])
+        if "reference" in self.cfg:  # this root's own module, checked
+            self.cfg[reference.FILE_KEY] = str(
+                pb / "reference" / f"{self.cfg['reference']}.py")
+            reference.module(self.cfg)
         self.mix = load_json(pb / "traffic" / f"{w['traffic']}.json")
         self.generator = load_module(
             pb / "traffic" / f"gen_{self.mix['generator']}.py")

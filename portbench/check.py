@@ -1,13 +1,12 @@
 """Whether what the timed path served is right: the decision ``correct``.
 
 Once the window has closed, the peak memory has been read and the
-program's state is freed, the plain float32 reference
-(``reference.model``, weights drawn again by ``reference.weights``)
-runs once over a sample of the finished invocations, drawn from the
-run's seed: the one with the longest prompt, one of each dispatch path
-that served any (a cold start's first request among them), then more
-until ``check_tokens`` served tokens are in it; and one ``score``
-invocation where any finished.
+program's state is freed, the plain float32 reference of the cell's
+configuration runs once over a sample of the finished invocations,
+drawn from the run's seed: the one with the longest prompt, one of each
+dispatch path that served any (a cold start's first request among
+them), then more until ``check_tokens`` served tokens are in it; and
+one ``score`` invocation where any finished.
 
 What is compared: for each served token, by how far the reference's
 logit for it lies below the reference's best at that position, in
@@ -26,13 +25,19 @@ rounding moves a token.  An invocation that failed or never returned
 makes the run not correct (``failed``, limit 0).  The limits are the
 cell's ``limits/<cell>.json``, set from readings of the program and of
 the control (``calibrate.py``).
+
+Which reference: the module ``reference/<stem>.py`` that the
+configuration file names by ``"reference": "<stem>"`` (its ``draw`` and
+``logits``; see ``reference/__init__.py``), loaded from the portbench
+directory the cell's files came from; for a file without the key,
+``reference.weights.draw`` and ``reference.model.logits``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from portbench import system
+from portbench import reference, system
 
 
 def sample(records, outputs, mix, seed):
@@ -74,6 +79,15 @@ def _errs(prog, ref):
             / ref.std(-1)).flatten().tolist()
 
 
+def reference_of(cfg):
+    """(draw, logits) of the configuration's reference."""
+    own = reference.module(cfg)
+    if own is not None:
+        return own.draw, own.logits
+    from portbench.reference import model, weights
+    return weights.draw, model.logits
+
+
 def reference_gaps(cfg, picked, outputs, seed, device, *, last_logits=None,
                    control=False):
     """{'gen_gap', 'score_gap', 'logit_err'} of the program on
@@ -86,8 +100,7 @@ def reference_gaps(cfg, picked, outputs, seed, device, *, last_logits=None,
     quartile; ``mismatch`` is the share of served
     tokens that are not the reference's first."""
     import torch
-    from portbench.reference import model as ref_model
-    from portbench.reference import weights as ref_weights
+    draw, ref_logits = reference_of(cfg)
     last_logits = last_logits or {}
     out = {}
     errs = {"logit_err": [], "logit_err_control": []}
@@ -101,7 +114,7 @@ def reference_gaps(cfg, picked, outputs, seed, device, *, last_logits=None,
         out[key] = max(out.get(key, v), v)
 
     for f in sorted({r["function"] for r in picked}):
-        params = ref_weights.draw(cfg, system.weight_seed(seed, f), device)
+        params = draw(cfg, system.weight_seed(seed, f), device)
         for r in (r for r in picked if r["function"] == f):
             S = r["prompt_len"]
             prompt = system.tokens_for(seed, system.WINDOW, r["i"],
@@ -124,7 +137,7 @@ def reference_gaps(cfg, picked, outputs, seed, device, *, last_logits=None,
                     served_logits = torch.as_tensor(
                         last_logits[r["i"]], device=device)[:, None]
             toks = torch.as_tensor(full, dtype=torch.long, device=device)
-            ref = ref_model.logits(cfg, params, toks, pos, prefill_len=S)
+            ref = ref_logits(cfg, params, toks, pos, prefill_len=S)
             prog = torch.as_tensor(prog, dtype=torch.long, device=device)
             put(key, _gap(ref, prog))
             if key == "gen_gap":
@@ -132,8 +145,8 @@ def reference_gaps(cfg, picked, outputs, seed, device, *, last_logits=None,
             if served_logits is not None:
                 errs["logit_err"] += _errs(served_logits, ref[:, err_at])
             if control:
-                low = ref_model.logits(cfg, params, toks, pos,
-                                       prefill_len=S, fp8=True)
+                low = ref_logits(cfg, params, toks, pos, prefill_len=S,
+                                 fp8=True)
                 put(key + "_control", _gap(ref, low.argmax(-1)))
                 if key == "gen_gap":
                     count("mismatch_control", low.argmax(-1), ref)

@@ -7,9 +7,22 @@ by (n, p) counts 2mnp operations; attention counts 4 hd operations per
 S(S+1)/2 pairs per head and row, a decode step at position p to the
 p + 1 filled slots.  Bytes count each input once and each output once,
 in the served dtype (2 bytes).
+
+These counts are of the decoders ``reference/model.py`` computes: GQA
+attention over ``n_kv_heads`` x ``head_dim`` and a gated MLP or top-k
+experts.  A configuration whose file names its own reference module
+(``"reference": "<stem>"``, see ``reference/__init__.py``) is counted
+by that module's ``body_params``, ``attn_flops``, ``flash_call`` and
+``decode_call`` where it defines them, and by these where it does not;
+``served_flops`` and ``kernel_work`` call through, so they count any
+architecture whose module states its own work.
 """
 
 from __future__ import annotations
+
+import functools
+
+from portbench import reference
 
 # one NVIDIA H100 SXM (data sheet, dense, no sparsity), at a 700 W limit
 PEAK_BF16_FLOPS = 989e12
@@ -17,6 +30,21 @@ HBM_BYTES_PER_S = 3.35e12
 DTYPE_BYTES = 2
 
 
+def per_config(fn):
+    """``fn``, or the function of the same name that the configuration's
+    own reference module defines (``own(cfg, name)``)."""
+    @functools.wraps(fn)
+    def call(cfg, *args):
+        return (own(cfg, fn.__name__) or fn)(cfg, *args)
+    return call
+
+
+def own(cfg: dict, name: str):
+    """The configuration's reference module's count ``name``, or None."""
+    return getattr(reference.module(cfg), name, None)
+
+
+@per_config
 def body_params(cfg: dict) -> int:
     """Matmul parameters a token passes through below the head: the
     attention projections and the MLP, or the router and its top-k
@@ -40,6 +68,7 @@ def attn_pairs_causal(S: int) -> int:
     return S * (S + 1) // 2
 
 
+@per_config
 def attn_flops(cfg: dict, B: int, pairs: int) -> int:
     """All layers' attention operations over ``pairs`` (query, key)
     pairs per head and row."""
@@ -61,6 +90,7 @@ def served_flops(cfg: dict, B: int, entry: str, S: int, new: int) -> int:
 
 
 # ------------------------------------------------------------- kernels
+@per_config
 def flash_call(cfg: dict, B: int, S: int) -> tuple[int, int]:
     """(operations, bytes) of one causal prefill attention call, one
     layer: q and o of H heads, k and v of K heads, S rows each."""
@@ -70,6 +100,7 @@ def flash_call(cfg: dict, B: int, S: int) -> tuple[int, int]:
     return flops, nbytes
 
 
+@per_config
 def decode_call(cfg: dict, B: int, filled: int) -> tuple[int, int]:
     """(operations, bytes) of one decode attention call, one layer, over
     ``filled`` cache slots a row: q and o of H heads, k and v of the

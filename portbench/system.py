@@ -16,6 +16,7 @@ once through each entry it sends.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import sys
 from functools import partial
@@ -24,7 +25,8 @@ import numpy as np
 
 from portbench.traffic import draw
 
-# the configuration file's keys the program's ArchConfig must match
+# the configuration file's keys the program's ArchConfig must match: these
+# every file has to state, and any other that names a field of the config
 WIDTHS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
           "vocab", "tie_embeddings", "qk_norm", "rope_theta", "norm_eps",
           "moe_group", "dtype")
@@ -48,14 +50,32 @@ def tokens_for(seed: int, stream: int, i: int, batch: int, length: int,
     return g.integers(0, vocab, (batch, length), dtype=np.int32)
 
 
+def _stated(cfg: dict, obj, required) -> list:
+    """``required``, then every other key of ``cfg`` that names a field
+    of the dataclass ``obj`` (``moe`` aside: its keys go one by one)."""
+    fields = {f.name for f in dataclasses.fields(obj)} - {"moe"}
+    return list(required) + sorted(k for k in cfg
+                                   if k in fields and k not in required)
+
+
+def _differs(value, stated) -> bool:
+    """Whether the config's ``value`` is not the file's ``stated`` (a
+    tuple is stated as a JSON list)."""
+    return (list(value) if isinstance(value, tuple) else value) != stated
+
+
 def check_widths(cfg_file: dict, arch) -> None:
-    """Raise unless the program's config has the file's numbers."""
-    bad = [k for k in WIDTHS if getattr(arch, k) != cfg_file[k]]
+    """Raise unless the program's config has the file's numbers: each of
+    ``WIDTHS`` and ``MOE_WIDTHS``, and every other key of the file, or
+    of its ``moe``, that names a field of the config there."""
+    bad = [k for k in _stated(cfg_file, arch, WIDTHS)
+           if _differs(getattr(arch, k), cfg_file[k])]
     if (arch.moe is None) != ("moe" not in cfg_file):
         bad.append("moe")
     elif arch.moe is not None:
-        bad += [f"moe.{k}" for k in MOE_WIDTHS
-                if getattr(arch.moe, k) != cfg_file["moe"][k]]
+        moe = cfg_file["moe"]
+        bad += [f"moe.{k}" for k in _stated(moe, arch.moe, MOE_WIDTHS)
+                if _differs(getattr(arch.moe, k), moe[k])]
     if bad:
         raise SystemExit(f"portbench: {arch.name} differs from its "
                          f"configuration file at {bad}")
